@@ -1,0 +1,111 @@
+"""Pixel convolve: defiltered scanlines → RGBA (plain PyTorch).
+
+Counterpart of ``samples_from_rows``, ``rescale``, ``samples_to_rgba`` and
+``unpack_rgba`` in ``swift_png_tpu/ops/convolve.py``: big-endian 16-bit
+atoms, MSB-first sub-byte samples, exact depth rescale, per-image palette
+dereference and chroma keys.  Every function here takes a leading batch
+axis (the JAX versions are per image and vmapped by their caller).  The
+iOS BGR layouts belong to the CgBI path, which indexed decode declines.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["samples_from_rows", "rescale", "samples_to_rgba", "unpack_rgba"]
+
+
+def quantum(source_depth: int, dest_bits: int) -> int:
+    return ((1 << dest_bits) - 1) // ((1 << source_depth) - 1)
+
+
+def _dtype(bits: int) -> torch.dtype:
+    return torch.uint8 if bits == 8 else torch.uint16
+
+
+def samples_from_rows(rows: torch.Tensor, depth: int, channels: int,
+                      width: int) -> torch.Tensor:
+    """``(B, H, pitch)`` uint8 rows → ``(B, H, width, channels)`` int32 raw
+    samples."""
+    B, H = rows.shape[:2]
+    if depth == 16:
+        atoms = rows.reshape(B, H, -1, 2).to(torch.int32)
+        samples = (atoms[..., 0] << 8) | atoms[..., 1]
+        return samples[:, :, : width * channels].reshape(B, H, width,
+                                                         channels)
+    if depth == 8:
+        return rows[:, :, : width * channels].reshape(
+            B, H, width, channels).to(torch.int32)
+    # sub-byte: MSB-first within each byte; single-channel formats
+    per = 8 // depth
+    i = torch.arange(width, device=rows.device)
+    byte = rows[:, :, i // per].to(torch.int32)
+    shift = ((per - 1 - (i % per)) * depth).to(torch.int32)
+    samples = (byte >> shift) & ((1 << depth) - 1)
+    return samples.reshape(B, H, width, 1)
+
+
+def rescale(samples: torch.Tensor, source_depth: int,
+            dest_bits: int) -> torch.Tensor:
+    """Exact depth rescale to ``dest_bits`` (8 → uint8, 16 → uint16)."""
+    if dest_bits == source_depth:
+        return samples.to(_dtype(dest_bits))
+    if dest_bits > source_depth:
+        return (samples * quantum(source_depth, dest_bits)).to(
+            _dtype(dest_bits))
+    return (samples >> (source_depth - dest_bits)).to(_dtype(dest_bits))
+
+
+def samples_to_rgba(raw: torch.Tensor, *, depth: int, channels: int,
+                    is_indexed: bool = False, has_key: bool = False,
+                    palette: torch.Tensor | None = None,
+                    key: torch.Tensor | None = None,
+                    bits: int = 8) -> torch.Tensor:
+    """Raw samples ``(B, H, W, C)`` int32 → ``(B, H, W, 4)`` RGBA at
+    ``bits``.  ``palette``: ``(B, n, 4)`` 8-bit entries with alpha folded
+    in; ``key``: ``(B, channels)`` raw-depth chroma keys (−1 never
+    matches)."""
+    tmax = (1 << bits) - 1
+    B, H, W = raw.shape[:3]
+    if is_indexed:
+        idx = raw[..., 0].reshape(B, H * W, 1).long().expand(-1, -1, 4)
+        gathered = palette.to(torch.int32).gather(1, idx)
+        return rescale(gathered.reshape(B, H, W, 4), 8, bits)
+    scaled = rescale(raw, depth, bits).to(torch.int32)
+    opaque = torch.full((B, H, W), tmax, dtype=torch.int32,
+                        device=raw.device)
+    if channels == 1:
+        v = scaled[..., 0]
+        alpha = opaque
+        if has_key:
+            alpha = torch.where(raw[..., 0] == key[:, 0, None, None], 0,
+                                tmax)
+        out = torch.stack([v, v, v, alpha], dim=-1)
+    elif channels == 2:
+        v = scaled[..., 0]
+        out = torch.stack([v, v, v, scaled[..., 1]], dim=-1)
+    elif channels == 3:
+        alpha = opaque
+        if has_key:
+            hit = (raw == key[:, None, None, :]).all(-1)
+            alpha = torch.where(hit, 0, tmax)
+        out = torch.cat([scaled, alpha[..., None]], dim=-1)
+    else:
+        out = scaled
+    return out.to(_dtype(bits))
+
+
+def unpack_rgba(rows: torch.Tensor, *, depth: int, channels: int,
+                width: int, is_indexed: bool = False, has_key: bool = False,
+                palette: torch.Tensor | None = None,
+                key: torch.Tensor | None = None,
+                bits: int = 8) -> torch.Tensor:
+    """Defiltered rows ``(B, H, pitch)`` → ``(B, H, width, 4)`` RGBA."""
+    if (depth == 8 and bits == 8 and channels == 4 and not is_indexed
+            and not has_key):
+        B, H = rows.shape[:2]
+        return rows[:, :, : width * 4].reshape(B, H, width, 4)
+    raw = samples_from_rows(rows, depth, channels, width)
+    return samples_to_rgba(raw, depth=depth, channels=channels,
+                           is_indexed=is_indexed, has_key=has_key,
+                           palette=palette, key=key, bits=bits)
