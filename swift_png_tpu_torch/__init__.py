@@ -6,7 +6,9 @@ unless the caller names another device; on a CUDA device the hand-written
 kernels in ``csrc/`` run, on the CPU their plain PyTorch versions.
 
 Served so far: batched decode of indexed PNGs (files carrying an ``spIx``
-checkpoint chunk), :func:`decode_indexed`.
+checkpoint chunk), :func:`decode_indexed`, and batched inflate of complete
+zlib streams, ``ops.inflate_checkpoint.CheckpointInflator.
+inflate_zlib_batch``.
 """
 
 from .parallel.batch import decode_indexed

@@ -1,5 +1,5 @@
-"""DEFLATE decode errors (the cases indexed decode raises, copied from
-``swift_png_tpu/lz77/errors.py``)."""
+"""zlib header and DEFLATE decode errors (the cases indexed decode and
+``inflate_zlib_batch`` raise, copied from ``swift_png_tpu/lz77/errors.py``)."""
 
 from __future__ import annotations
 
@@ -16,8 +16,28 @@ class LZ77Error(Exception):
                          + (f" {details}" if details else ""))
 
 
+class StreamHeaderError(LZ77Error):
+    namespace = "lz77.stream header error"
+
+    @classmethod
+    def invalid_compression_method(cls, code: int):
+        return cls("invalidCompressionMethod",
+                   "invalid rfc-1950 stream compression method code",
+                   code=code)
+
+    @classmethod
+    def invalid_check_bits(cls):
+        return cls("invalidCheckBits",
+                   "invalid rfc-1950 stream header check bits")
+
+
 class DecompressionError(LZ77Error):
     namespace = "lz77.decompression error"
+
+    @classmethod
+    def invalid_stream_checksum(cls, declared: int, computed: int):
+        return cls("invalidStreamChecksum", "invalid checksum",
+                   declared=declared, computed=computed)
 
     @classmethod
     def invalid_block_type_code(cls, code: int):

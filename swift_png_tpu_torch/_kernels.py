@@ -67,6 +67,8 @@ KERNELS = {
                            "spt_decode_stamp", [_P] * 9 + [_I] * 5 + [_P]),
     "defilter": Kernel("defilter", "defilter.cu", "spt_defilter",
                        [_P, _P, _I, _I, _I, _I, _P]),
+    "seqcopy": Kernel("seqcopy", "seqcopy.cu", "spt_seqcopy",
+                      [_P] * 4 + [_I] * 3 + [_P]),
 }
 _LOCK = threading.Lock()
 

@@ -13,6 +13,8 @@ import torch
 from swift_png_tpu_torch import _kernels, decode_indexed
 from swift_png_tpu_torch._host.lz77.index import build_index
 from swift_png_tpu_torch.ops.inflate_checkpoint import CheckpointInflator
+from swift_png_tpu_torch.ops.inflate_seqcopy import (seqcopy_cuda,
+                                                     seqcopy_reference)
 from swift_png_tpu_torch.ops.inflate_stamp import (decode_stamp_cuda,
                                                    decode_stamp_reference)
 from swift_png_tpu_torch.ops.unfilter import defilter_cuda, defilter_reference
@@ -75,6 +77,19 @@ def test_defilter_kernel_matches_plain(cuda, delay, height):
     assert torch.equal(got, defilter_reference(f, delay))
 
 
+def _png(W, H, stream, index_blob):
+    """An rgba8 PNG with one IDAT and an ``spIx`` chunk."""
+    def chunk(kind, data):
+        return (len(data).to_bytes(4, "big") + kind + data
+                + zlib.crc32(kind + data).to_bytes(4, "big"))
+
+    return (bytes([137, 80, 78, 71, 13, 10, 26, 10])
+            + chunk(b"IHDR", W.to_bytes(4, "big") + H.to_bytes(4, "big")
+                    + bytes([8, 6, 0, 0, 0]))
+            + chunk(b"IDAT", stream) + chunk(b"spIx", index_blob)
+            + chunk(b"IEND", b""))
+
+
 def test_decode_indexed_on_card_counts_launches(cuda):
     rng = np.random.default_rng(0)
     H, W = 64, 48
@@ -83,17 +98,76 @@ def test_decode_indexed_on_card_counts_launches(cuda):
     s = zlib.compress(rows.tobytes(), 6)
     ix = build_index(s[2:-4], rows.size, OB)
 
-    def chunk(kind, data):
-        return (len(data).to_bytes(4, "big") + kind + data
-                + zlib.crc32(kind + data).to_bytes(4, "big"))
-
-    blob = (bytes([137, 80, 78, 71, 13, 10, 26, 10])
-            + chunk(b"IHDR", W.to_bytes(4, "big") + H.to_bytes(4, "big")
-                    + bytes([8, 6, 0, 0, 0]))
-            + chunk(b"IDAT", s) + chunk(b"spIx", ix.serialize())
-            + chunk(b"IEND", b""))
+    blob = _png(W, H, s, ix.serialize())
     _kernels.reset_launches()
     out = decode_indexed([blob, blob])
     assert out.device.type == "cuda"
-    assert _kernels.launch_counts() == {"decode_stamp": 1, "defilter": 1}
+    assert _kernels.launch_counts() == {"decode_stamp": 1, "defilter": 1,
+                                        "seqcopy": 0}
     assert torch.equal(out.cpu(), torch.from_numpy(np.stack([px, px])))
+
+
+def _k2_case(B, n_recs, Rp, rng, smooth):
+    """Records after ``tools/exp_seqcopy.py`` ``_make_case``."""
+    lit = rng.integers(0, 256, (B, Rp * 128), dtype=np.uint8)
+    recs, starts = [], [0]
+    for _ in range(B):
+        pos = 300
+        for _ in range(n_recs):
+            if smooth:
+                d, ln = int(rng.choice([1, 2, 4, 8])), int(rng.integers(64,
+                                                                         258))
+            else:
+                d = int(rng.integers(1, min(pos, 32768)))
+                ln = int(rng.integers(3, 259))
+            if pos + ln >= (Rp - 17) * 128:
+                break
+            recs.append((pos, d, ln))
+            pos += ln + int(rng.integers(1, 40))
+        starts.append(len(recs))
+    return lit, np.asarray(recs, np.int32), np.asarray(starts, np.int32)
+
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["random_d", "smooth"])
+def test_seqcopy_kernel_matches_plain(cuda, smooth):
+    lit, recs, starts = _k2_case(3, 300, 700, np.random.default_rng(5),
+                                 smooth)
+    args = [torch.from_numpy(x).to(cuda) for x in (starts, recs, lit)]
+    got = seqcopy_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, seqcopy_reference(*args))
+
+
+def test_seqcopy_kernel_keeps_hostile_records_in_their_row(cuda):
+    lit = torch.arange(2 * 301, device=cuda).to(torch.uint8).reshape(2, 301)
+    recs = torch.tensor([[-5, 3, 20], [290, 2, 50], [10, 0, 5],
+                         [5, 20, 10], [0, 1, 0]], dtype=torch.int32,
+                        device=cuda)
+    starts = torch.tensor([0, 3, 5], dtype=torch.int32, device=cuda)
+    got = seqcopy_cuda(starts, recs, lit)
+    torch.cuda.synchronize()
+    assert torch.equal(got, seqcopy_reference(starts, recs, lit))
+
+
+def test_decode_indexed_records_mode_on_card(cuda):
+    H = W = 128
+    y, x = np.mgrid[0:H, 0:W]
+    pngs, images = [], []
+    for i in range(3):
+        px = np.stack([(x // 8 + y // 8 + i) % 256, x // 4 % 256,
+                       y // 4 % 256, np.full_like(x, 255)],
+                      axis=-1).astype(np.uint8)
+        # Up on every row: smooth content becomes a few long matches
+        raw = px.reshape(H, W * 4).astype(np.int32)
+        up = np.vstack([np.zeros((1, W * 4), np.int32), raw[:-1]])
+        rows = np.hstack([np.full((H, 1), 2, np.uint8),
+                          ((raw - up) & 255).astype(np.uint8)])
+        s = zlib.compress(rows.tobytes(), 6)
+        ix = build_index(s[2:-4], rows.size, OB)
+        pngs.append(_png(W, H, s, ix.serialize()))
+        images.append(px)
+    _kernels.reset_launches()
+    out = decode_indexed(pngs)
+    assert _kernels.launch_counts() == {"decode_stamp": 1, "defilter": 1,
+                                        "seqcopy": 1}
+    assert torch.equal(out.cpu(), torch.from_numpy(np.stack(images)))
