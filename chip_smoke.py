@@ -81,12 +81,16 @@ def nvidia_smi() -> str:
 
 # ---- inputs: the bench image recipe, filtered with type y % 5 -------------
 
-def bench_image(seed: int) -> np.ndarray:
+def bench_image(seed: int, h: int | None = None,
+                w: int | None = None) -> np.ndarray:
+    """``bench.py``'s image recipe (``_image``), ``h × w`` (default
+    ``H × W``)."""
+    h, w = h or H, w or W
     rng = np.random.default_rng(seed)
-    y, x = np.mgrid[0:H, 0:W]
+    y, x = np.mgrid[0:h, 0:w]
     base = (128 + 60 * np.sin(x / 37.0 + seed) + 50 * np.cos(y / 23.0)
             )[..., None] + np.array([0, 30, -20, 0])[None, None, :]
-    noise = rng.normal(0, 12, (H, W, 4))
+    noise = rng.normal(0, 12, (h, w, 4))
     pixels = np.clip(base + noise, 0, 255).astype(np.uint8)
     pixels[..., 3] = 255
     return pixels
@@ -225,6 +229,13 @@ def host_ms(fn, reps: int) -> list[float]:
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return out
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time the card could take (ms), and what bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def max_abs(pairs) -> int:
@@ -400,6 +411,244 @@ def sweeps_path(dev) -> None:
          ms=times, ms_min=best, gb_per_s=B * out_size / best / 1e6,
          stage_ms_min={k: min(v) for k, v in st.items()}, stage_ms=st,
          launches=launches, plan=plan, bytes_equal=True, trailers_checked=True)
+
+
+# ---- encode: the level 8-13 batched optimal parse ---------------------------
+
+ENC_REPS = 3            # warm timed runs of each encode stage
+ENC_LEVEL = 9
+# Integer operations the encode kernels need (not what their sources
+# spend).  K4: per live position and menu slot, the equality compare, the
+# run update and the score compare of the top-2.  K5: per edge the run's
+# candidates allow (the literal edge, and lengths 3..min(run, clen - i) of
+# each candidate), an add and a compare.  K6: per slot, the field decode
+# (8), two table entries (2) and four placements into the 64-bit window
+# (5 each).
+K4_OPS_PER_SLOT = 3
+K5_OPS_PER_EDGE = 2
+K6_OPS_PER_TERM = 30
+
+
+def encode_images(config: str, b: int, h: int, w: int) -> np.ndarray:
+    if config == "photographic":
+        return np.stack([bench_image(s, h, w) for s in range(b)])
+    return np.stack([smooth_image(i, h, w) for i in range(b)])
+
+
+def encode_plan(dev, px: np.ndarray):
+    """Filter ``px`` on the card and stage the batch as ``BatchCodec.encode``
+    does: ``(filtered (B, n) on the card, datas, plan)``."""
+    from swift_png_tpu_torch.ops import convolve
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+    from swift_png_tpu_torch.parallel.batch import encode_stage
+
+    b, h, w, _ = px.shape
+    samples = torch.from_numpy(px).to(dev, torch.int32)
+    filtered = encode_stage(convolve.pack_rows(samples, 8, 4, w), 4
+                            ).reshape(b, -1)
+    flat = filtered.cpu().numpy()
+    datas = [flat[i].tobytes() for i in range(b)]
+    stride = tdo.batch_layout([flat.shape[1]] * b)[0]
+    dbuf = torch.nn.functional.pad(filtered, (0, stride - flat.shape[1]))
+    return filtered, datas, tdo._batch_inputs(datas, 4, w * 4 + 1, dev,
+                                              dbuf.reshape(-1))
+
+
+def encode_kernel_checks(dev, config: str, px: np.ndarray,
+                         timed: bool = False) -> dict:
+    """K4, K5 (first-iteration tables) and K6 (on the batch's pack route)
+    against their plain versions on the card; with ``timed``, their device
+    times and this input's bytes and operations too."""
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+    from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_cuda,
+                                                      emit_terms_reference)
+
+    _, _, plan = encode_plan(dev, px)
+    cargs = (plan["dists2"], plan["decades2"], plan["dbuf"], plan["nvec"])
+    ckw = dict(dmax=plan["dmax"], stride=plan["stride"])
+    cand = tdo.menu_candidates_cuda(*cargs, **ckw)
+    tables = tdo._initial_tables(plan, ENC_LEVEL)[:3]
+    torch.cuda.synchronize()
+    k4_err = max_abs([(cand, tdo.menu_candidates_reference(*cargs, **ckw))])
+    dargs = (plan["dbuf"], plan["clen"], cand, *tables)
+    got = tdo.optimal_parse_cuda(*dargs, tpi=plan["TPI"])
+    torch.cuda.synchronize()
+    want = tdo.optimal_parse_reference(*dargs, tpi=plan["TPI"])
+    k5_err = max_abs(zip(got, want))
+    terms, valid, hist = got
+    freqs = hist.cpu().numpy().astype(np.int64)
+    tabs = tdo._host_trees(freqs)[1]
+    route, e_terms, _, per_image = tdo.emit_input(terms, valid, freqs,
+                                                  plan["TPI"])
+    tabs_d = torch.from_numpy(tabs).to(dev)
+    e_got = emit_terms_cuda(e_terms, tabs_d, per_image)
+    torch.cuda.synchronize()
+    k6_err = max_abs(zip(e_got, emit_terms_reference(e_terms, tabs_d,
+                                                     per_image)))
+    out = dict(config=config, images=list(px.shape[:3]), route=route,
+               dmax=plan["dmax"], k4_max_abs_err=k4_err,
+               k5_max_abs_err=k5_err, k6_max_abs_err=k6_err,
+               terms=int(valid.sum()), match_terms=int(freqs[:, 257:286].sum()))
+    emit(phase="encode_kernel_check", **out)
+    if k4_err or k5_err or k6_err:
+        fail(f"an encode kernel differs from its plain version on {config} "
+             f"{list(px.shape[:3])}")
+    if not timed:
+        return out
+    ntot, b = plan["Ntot"], plan["B"]
+    live = int(plan["clen"].long().sum())
+    live_slots = int(((plan["dists2"] > 0).sum(1) * plan["nvec"]).sum())
+    # the edges this run's candidates allow, position by position
+    clen_p = plan["clen"].long().repeat_interleave(tdo.NB)
+    i = torch.arange(ntot, device=dev) % tdo.NB
+    reach = torch.minimum(cand.long() & 0x1FF, (clen_p - i)[None])
+    edges = int(((reach - 2).clamp(min=0) * (i < clen_p)[None]).sum())
+    n_e = e_terms.numel()
+    out.update(
+        k4_ms=cuda_ms(lambda: tdo.menu_candidates_cuda(*cargs, **ckw), 10),
+        k4_plain_ms=cuda_ms(
+            lambda: tdo.menu_candidates_reference(*cargs, **ckw), 1),
+        # data is read where it is live; cand is written at every position
+        k4_bytes=live + ntot * 8 + b * plan["dmax"] * 8 + b * 4,
+        k4_ops=live_slots * K4_OPS_PER_SLOT,
+        k5_ms=cuda_ms(lambda: tdo.optimal_parse_cuda(*dargs,
+                                                     tpi=plan["TPI"]), 5),
+        k5_plain_ms=cuda_ms(lambda: tdo.optimal_parse_reference(
+            *dargs, tpi=plan["TPI"]), 1),
+        # data and cand are read where they are live; terms and valid are
+        # written at every position
+        k5_bytes=live * 9 + ntot * 5 + (ntot // tdo.NB) * 4 + b * 544 * 4
+        + 288 * 4 + b * 320 * 4,
+        k5_edges=live + edges, k5_ops=(live + edges) * K5_OPS_PER_EDGE,
+        k6_ms=cuda_ms(lambda: emit_terms_cuda(e_terms, tabs_d, per_image),
+                      10),
+        k6_plain_ms=cuda_ms(lambda: emit_terms_reference(e_terms, tabs_d,
+                                                         per_image), 1),
+        k6_bytes=n_e * 16 + b * 320 * 4, k6_ops=n_e * K6_OPS_PER_TERM)
+    return out
+
+
+def idat_streams(pngs: list[bytes]) -> list[bytes]:
+    """Each PNG's concatenated IDAT payload, read with the port's lexer;
+    fails unless every PNG carries an ``spIx`` chunk."""
+    from swift_png_tpu_torch._host.png import chunk as chunks
+
+    out = []
+    for data in pngs:
+        src = chunks.ByteSource(data)
+        src.signature()
+        parts, kinds = [], []
+        while not kinds or kinds[-1] != chunks.IEND:
+            kind, payload = src.chunk()
+            kinds.append(kind)
+            if kind == chunks.IDAT:
+                parts.append(payload)
+        if chunks.spIx not in kinds:
+            fail("an encoded PNG has no spIx chunk")
+        out.append(b"".join(parts))
+    return out
+
+
+def encode_path(dev, config: str) -> dict:
+    """``BatchCodec.encode`` at full width (B = 32 × 512×512 rgba8, level
+    9, ``index=True``), checked through zlib and the port's
+    ``decode_indexed``; then its stages one by one, best of ``ENC_REPS``."""
+    from swift_png_tpu_torch import BatchCodec, _kernels, decode_indexed
+    from swift_png_tpu_torch._host.lz77.index import build_index
+    from swift_png_tpu_torch.ops import convolve
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+    from swift_png_tpu_torch.ops.deflate_emit import emit_terms_batch
+    from swift_png_tpu_torch.parallel.batch import encode_stage
+
+    px = encode_images(config, B, H, W)
+    codec = BatchCodec(dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    pngs = codec.encode(px, level=ENC_LEVEL, kind="rgba8", index=True)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = _kernels.launch_counts()
+    for name in ("cand", "dp_parse", "emit"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on encode_{config}")
+    filtered, datas, plan = encode_plan(dev, px)
+    streams = idat_streams(pngs)
+    for d, s in zip(datas, streams):
+        if zlib.decompress(s) != d:
+            fail(f"encode_{config}: an IDAT stream does not inflate to the "
+                 f"filtered bytes")
+    _kernels.reset_launches()
+    pixels = decode_indexed(pngs)
+    torch.cuda.synchronize()
+    dec_launches = _kernels.launch_counts()
+    for name in ("decode_stamp", "defilter"):
+        if dec_launches[name] < 1:
+            fail(f"kernel {name} was not launched on the encode_{config} "
+                 f"read-back")
+    if pixels is None or not torch.equal(pixels.cpu(), torch.from_numpy(px)):
+        fail(f"encode_{config}: decoded pixels differ from the source")
+
+    # the stages one by one, on the same batch
+    st = {}
+    samples = torch.from_numpy(px).to(dev, torch.int32)
+    st["filter"] = host_ms(lambda: encode_stage(
+        convolve.pack_rows(samples, 8, 4, W), 4), ENC_REPS)
+    st["fetch_filtered"] = host_ms(lambda: filtered.cpu().numpy(), ENC_REPS)
+    dbuf = plan["dbuf"]
+    st["plan"] = host_ms(lambda: tdo._batch_inputs(datas, 4, W * 4 + 1, dev,
+                                                   dbuf), ENC_REPS)
+    cargs = (plan["dists2"], plan["decades2"], dbuf, plan["nvec"])
+    ckw = dict(dmax=plan["dmax"], stride=plan["stride"])
+    st["k4"] = host_ms(lambda: tdo.menu_candidates_batch(*cargs, **ckw),
+                       ENC_REPS)
+    cand = tdo.menu_candidates_batch(*cargs, **ckw)
+    dep, run, dde, iters = tdo._initial_tables(plan, ENC_LEVEL)
+    for it in range(iters):
+        tabs = (dep, run, dde)
+        st[f"k5_iter{it + 1}"] = host_ms(lambda: tdo.optimal_parse(
+            dbuf, plan["clen"], cand, *tabs, tpi=plan["TPI"]), ENC_REPS)
+        terms, valid, hist = tdo.optimal_parse(dbuf, plan["clen"], cand,
+                                               *tabs, tpi=plan["TPI"])
+        if it + 1 < iters:
+            st[f"depths_refresh{it + 1}"] = host_ms(
+                lambda: tdo._device_depths_update(hist, *tabs), ENC_REPS)
+            dep, run, dde = tdo._device_depths_update(hist, *tabs)
+    st["hist_fetch_trees"] = host_ms(lambda: tdo._host_trees(
+        hist.cpu().numpy().astype(np.int64)), ENC_REPS)
+    freqs = hist.cpu().numpy().astype(np.int64)
+    trees, etabs, spans = tdo._host_trees(freqs)
+    route, e_terms, _, per_image = tdo.emit_input(terms, valid, freqs,
+                                                  plan["TPI"])
+    etabs_d = torch.from_numpy(etabs).to(dev)
+    st["k6"] = host_ms(lambda: emit_terms_batch(e_terms, etabs_d, per_image),
+                       ENC_REPS)
+    # K6 again, with the route's compaction and the scatter pack
+    pack = lambda: tdo._emit_pack(terms, valid, freqs, etabs, spans,
+                                  plan["TPI"])
+    st["pack"] = host_ms(pack, ENC_REPS)
+    atoms_list, totals = pack()
+    st["fetch"] = host_ms(lambda: tdo._fetch_bodies(atoms_list, totals),
+                          ENC_REPS)
+    bodies = tdo._fetch_bodies(atoms_list, totals)
+    asm = lambda: [tdo._zlib_stream(d, t, *bd)
+                   for d, t, bd in zip(datas, trees, bodies)]
+    st["assembly"] = host_ms(asm, ENC_REPS)
+    if asm() != streams:
+        fail(f"encode_{config}: the stages give other streams than the call")
+    st["index"] = host_ms(lambda: [build_index(s[2:-4], len(d), 256)
+                                   for s, d in zip(streams, datas)], 1)
+    sizes = [len(s) for s in streams]
+    zsizes = [len(zlib.compress(d, 9)) for d in datas]
+    emit(phase="encode_path", config=config, streams=B, level=ENC_LEVEL,
+         in_bytes=sum(len(d) for d in datas), call_ms=call_ms,
+         mb_per_s=sum(len(d) for d in datas) / call_ms / 1e3, route=route,
+         emit_slots_per_image=per_image, dp_iterations=iters,
+         stage_ms_min={k: min(v) for k, v in st.items()}, stage_ms=st,
+         launches=launches, readback_launches=dec_launches,
+         compressed_bytes=sizes, zlib9_bytes=zsizes,
+         ratio_vs_zlib9=sum(sizes) / sum(zsizes), streams_inflate=True,
+         pixels_equal=True)
+    return launches
 
 
 def main() -> int:
@@ -616,33 +865,55 @@ def main() -> int:
     k2 = records_path(dev)
     k2_err = max(k2_err, k2["max_abs_err"])
     sweeps_path(dev)
+
+    # ---- encode: K4, K5, K6 against their plain versions, then the path ----
+    checks = [encode_kernel_checks(dev, config, encode_images(config, 4, 256,
+                                                              256))
+              for config in ("photographic", "smooth")]
+    enc_launches = encode_path(dev, "photographic")
+    encode_path(dev, "smooth")
+    enc = encode_kernel_checks(dev, "photographic",
+                               encode_images("photographic", B, H, W),
+                               timed=True)
+    checks += [enc, encode_kernel_checks(dev, "smooth",
+                                         encode_images("smooth", B, H, W))]
+    enc_err = {k: max(c[f"{k}_max_abs_err"] for c in checks)
+               for k in ("k4", "k5", "k6")}
     emit(phase="bounds", k1_tokens=tokens, k1_literals=literals,
          k1_matches=matches, k1_eobs=eobs, k1_bytes=k1_bytes, k1_ops=k1_ops,
          k3_bytes=k3_bytes, k3_ops=k3_ops, k2_records=k2["records"],
-         k2_bytes=k2["bytes"], hbm_bytes_per_s=HBM_BYTES_PER_S,
-         int_ops_per_s=INT_OPS_PER_S)
+         k2_bytes=k2["bytes"],
+         **{k: enc[k] for k in ("k4_bytes", "k4_ops", "k5_bytes", "k5_edges",
+                                "k5_ops", "k6_bytes", "k6_ops")},
+         hbm_bytes_per_s=HBM_BYTES_PER_S, int_ops_per_s=INT_OPS_PER_S)
+    encode_kernels = []
+    for k, name, line in (
+            ("k4", "cand", "swift_png_tpu/ops/deflate_optimal.py:243"),
+            ("k5", "dp_parse", "swift_png_tpu/ops/deflate_optimal.py:573"),
+            ("k6", "emit", "swift_png_tpu/ops/deflate_emit.py:44")):
+        b_ms, b_by = bound(enc[f"{k}_bytes"], enc[f"{k}_ops"])
+        encode_kernels.append(dict(
+            name=name, route="cuda",
+            source=f"swift_png_tpu_torch/csrc/{name}.cu", replaces=line,
+            launches=enc_launches[name], max_abs_err=enc_err[k],
+            ms=enc[f"{k}_ms"], plain_ms=enc[f"{k}_plain_ms"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
 
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
+    k3_bound, k3_by = bound(k3_bytes, k3_ops)
     emit(kernels=[
         dict(name="decode_stamp", route="cuda",
              source="swift_png_tpu_torch/csrc/inflate_stamp.cu",
              replaces="swift_png_tpu/ops/inflate_pallas.py:130",
              launches=launches["decode_stamp"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain_ms,
-             bound_ms=max(k1_bytes / HBM_BYTES_PER_S,
-                          k1_ops / INT_OPS_PER_S) * 1e3,
-             bound_by=("bytes" if k1_bytes / HBM_BYTES_PER_S
-                       >= k1_ops / INT_OPS_PER_S else "operations"),
-             library_ms=None),
+             ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
+             bound_by=k1_by, library_ms=None),
         dict(name="defilter", route="cuda",
              source="swift_png_tpu_torch/csrc/defilter.cu",
              replaces="swift_png_tpu/ops/unfilter_pallas.py:39",
              launches=launches["defilter"], max_abs_err=k3_err,
-             ms=k3_ms, plain_ms=k3_plain_ms,
-             bound_ms=max(k3_bytes / HBM_BYTES_PER_S,
-                          k3_ops / INT_OPS_PER_S) * 1e3,
-             bound_by=("bytes" if k3_bytes / HBM_BYTES_PER_S
-                       >= k3_ops / INT_OPS_PER_S else "operations"),
-             library_ms=None),
+             ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
+             bound_by=k3_by, library_ms=None),
         # K2 copies bytes and computes one index per byte: bytes bound it
         dict(name="seqcopy", route="cuda",
              source="swift_png_tpu_torch/csrc/seqcopy.cu",
@@ -652,6 +923,7 @@ def main() -> int:
              plain_ms=k2["plain_ms"],
              bound_ms=k2["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),
+        *encode_kernels,
     ])
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,12 @@ unless the caller names another device; on a CUDA device the hand-written
 kernels in ``csrc/`` run, on the CPU their plain PyTorch versions.
 
 Served so far: batched decode of indexed PNGs (files carrying an ``spIx``
-checkpoint chunk), :func:`decode_indexed`, and batched inflate of complete
+checkpoint chunk), :func:`decode_indexed`; batched inflate of complete
 zlib streams, ``ops.inflate_checkpoint.CheckpointInflator.
-inflate_zlib_batch``.
+inflate_zlib_batch``; and batched level 8–13 encode of non-indexed,
+non-interlaced images, :meth:`BatchCodec.encode`.
 """
 
-from .parallel.batch import decode_indexed
+from .parallel.batch import BatchCodec, decode_indexed
 
-__all__ = ["decode_indexed"]
+__all__ = ["BatchCodec", "decode_indexed"]

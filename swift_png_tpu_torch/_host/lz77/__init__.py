@@ -1,2 +1,3 @@
-"""DEFLATE host layer: constants, errors, canonical Huffman tables and the
-checkpoint index walker (copies of ``swift_png_tpu/lz77``)."""
+"""DEFLATE host layer: constants, errors, canonical Huffman tables, the
+checkpoint index walker and the encoder's host parts (copies of
+``swift_png_tpu/lz77``)."""

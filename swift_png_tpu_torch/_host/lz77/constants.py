@@ -1,4 +1,4 @@
-"""RFC 1951 constant tables the index walker reads (copy of
+"""RFC 1951 constant tables the index walker and the encoder read (copy of
 ``swift_png_tpu/lz77/constants.py``)."""
 
 from __future__ import annotations
@@ -32,3 +32,31 @@ DISTANCE_BASE = np.array(
 # order in which code-length code lengths are transmitted (RFC 1951 §3.2.7)
 CODELENGTH_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2,
                     14, 1, 15)
+
+MAX_RUN = 258
+MAX_DISTANCE = 32768
+
+
+def _run_decades() -> np.ndarray:
+    """Inverse map run length (3…258) → decade index 0…28."""
+    table = np.zeros(MAX_RUN + 1, dtype=np.int32)
+    for decade in range(29):
+        base = int(RUN_BASE[decade])
+        span = 1 << int(RUN_EXTRA[decade])
+        table[base: min(base + span, MAX_RUN + 1)] = decade
+    table[MAX_RUN] = 28
+    return table
+
+
+def _distance_decades() -> np.ndarray:
+    """Inverse map distance (1…32768) → decade index 0…29."""
+    table = np.zeros(MAX_DISTANCE + 1, dtype=np.int32)
+    for decade in range(30):
+        base = int(DISTANCE_BASE[decade])
+        span = 1 << int(DISTANCE_EXTRA[decade])
+        table[base: min(base + span, MAX_DISTANCE + 1)] = decade
+    return table
+
+
+RUN_DECADE = _run_decades()
+DISTANCE_DECADE = _distance_decades()

@@ -1,5 +1,6 @@
-"""Canonical Huffman validation and flat decode LUTs (the parts of
-``swift_png_tpu/lz77/huffman.py`` the index walker reads)."""
+"""Canonical Huffman validation, flat decode LUTs and length-limited code
+construction (the parts of ``swift_png_tpu/lz77/huffman.py`` the index
+walker and the encoder read)."""
 
 from __future__ import annotations
 
@@ -74,3 +75,50 @@ def decode_table(lengths: np.ndarray, max_len: int = 15) -> np.ndarray:
         rev = reverse_bits(int(codes[sym]), l)
         table[rev::1 << l] = (l << 16) | int(sym)
     return table
+
+
+def lengths_from_frequencies(frequencies: np.ndarray, limit: int,
+                             force: bool = True) -> np.ndarray:
+    """Optimal length-limited code lengths via package-merge.
+
+    ``force`` ensures at least two symbols get codes when only 0–1 have
+    nonzero frequency (DEFLATE requires the literal tree to encode at
+    least the end-of-block symbol).  The lengths are the stream's trees,
+    so this is a copy of the JAX package's function, ties and all.
+    """
+    freqs = np.asarray(frequencies, dtype=np.int64)
+    n = freqs.size
+    used = np.nonzero(freqs)[0]
+    lengths = np.zeros(n, dtype=np.int64)
+    if used.size == 0:
+        if force and n >= 2:
+            lengths[0] = lengths[1] = 1
+        return lengths
+    if used.size == 1:
+        lengths[used[0]] = 1
+        if force:
+            other = 0 if used[0] != 0 else 1
+            if n >= 2:
+                lengths[other] = 1
+        return lengths
+    if used.size > (1 << limit):
+        raise HuffmanError("too many symbols for the length limit")
+
+    # lengths[sym] = number of times sym appears across the first
+    # (2·n_used - 2) items of the merged package hierarchy
+    items = sorted((int(freqs[s]), int(s)) for s in used)
+    level = [(w, (s,)) for w, s in items]
+    for _ in range(limit - 1):
+        paired = []
+        for i in range(0, len(level) - 1, 2):
+            w = level[i][0] + level[i + 1][0]
+            syms = level[i][1] + level[i + 1][1]
+            paired.append((w, syms))
+        level = sorted(paired + [(w, (s,)) for w, s in items])
+    take = 2 * used.size - 2
+    counts = np.zeros(n, dtype=np.int64)
+    for w, syms in level[:take]:
+        for s in syms:
+            counts[s] += 1
+    lengths[used] = counts[used]
+    return lengths

@@ -1,2 +1,3 @@
-"""PNG host layer: chunk lexing and the IHDR/PLTE/tRNS models (copies of
-the parts of ``swift_png_tpu/png`` that indexed decode reads)."""
+"""PNG host layer: chunk lexing and writing, the IHDR/PLTE/tRNS models and
+the IHDR-only pre-IDAT writer (copies of the parts of ``swift_png_tpu/png``
+that indexed decode and the batched encoder read)."""

@@ -1,5 +1,6 @@
-"""PNG container lexing: signature, chunk framing, CRC-32 (the reading half
-of ``swift_png_tpu/png/chunk.py``; the CRC is stdlib ``zlib.crc32``)."""
+"""PNG container lexing and writing: signature, chunk framing, CRC-32
+(``ByteSource`` and ``ByteDestination`` of ``swift_png_tpu/png/chunk.py``;
+the CRC is stdlib ``zlib.crc32``)."""
 
 from __future__ import annotations
 
@@ -68,3 +69,27 @@ class ByteSource:
         if computed != declared:
             raise LexingError.invalid_chunk_checksum(declared, computed)
         return name, data
+
+
+class ByteDestination:
+    """An in-memory PNG bytestream being written."""
+
+    def __init__(self) -> None:
+        self.chunks: list[bytes] = []
+
+    def write(self, data: bytes) -> None:
+        self.chunks.append(bytes(data))
+
+    def signature(self) -> None:
+        self.write(SIGNATURE)
+
+    def format(self, type: str, data: bytes = b"") -> None:
+        """One chunk: length, type, data and the CRC-32 of type + data."""
+        name = type.encode("ascii")
+        self.write(len(data).to_bytes(4, "big"))
+        self.write(name)
+        self.write(data)
+        self.write(zlib.crc32(name + data).to_bytes(4, "big"))
+
+    def getvalue(self) -> bytes:
+        return b"".join(self.chunks)

@@ -48,6 +48,13 @@ class Header:
             raise ParsingError.invalidHeaderSize(size=size)
         return cls(size, pixel, data[12] == 1)
 
+    @property
+    def serialized(self) -> bytes:
+        d, c = self.pixel.code
+        return (self.size[0].to_bytes(4, "big")
+                + self.size[1].to_bytes(4, "big")
+                + bytes([d, c, 0, 0, 1 if self.interlaced else 0]))
+
 
 @dataclass(frozen=True)
 class Palette:

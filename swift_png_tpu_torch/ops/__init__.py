@@ -2,4 +2,7 @@
 (:mod:`.inflate_stamp`), the indexed inflate around it
 (:mod:`.inflate_checkpoint`) with the K2 records copy for match-dominated
 batches (:mod:`.inflate_seqcopy`), the K3 defilter (:mod:`.unfilter`) and the
-pixel convolve (:mod:`.convolve`)."""
+pixel convolve (:mod:`.convolve`); and of level 8–13 encode: filter select
+(:mod:`.filter`), the K4 candidate search and K5 parse with the pipeline
+around them (:mod:`.deflate_optimal`), K6 term emission
+(:mod:`.deflate_emit`) and the packers and block writer (:mod:`.deflate`)."""

@@ -3,7 +3,8 @@
 Counterpart of ``samples_from_rows``, ``rescale``, ``samples_to_rgba`` and
 ``unpack_rgba`` in ``swift_png_tpu/ops/convolve.py``: big-endian 16-bit
 atoms, MSB-first sub-byte samples, exact depth rescale, per-image palette
-dereference and chroma keys.  Every function here takes a leading batch
+dereference and chroma keys; and ``pack_rows``, the encoder's way back
+from samples to scanline bytes.  Every function here takes a leading batch
 axis (the JAX versions are per image and vmapped by their caller).  The
 iOS BGR layouts belong to the CgBI path, which indexed decode declines.
 """
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["samples_from_rows", "rescale", "samples_to_rgba", "unpack_rgba"]
+__all__ = ["samples_from_rows", "rescale", "samples_to_rgba", "unpack_rgba",
+           "pack_rows"]
 
 
 def quantum(source_depth: int, dest_bits: int) -> int:
@@ -93,6 +95,30 @@ def samples_to_rgba(raw: torch.Tensor, *, depth: int, channels: int,
     else:
         out = scaled
     return out.to(_dtype(bits))
+
+
+def pack_rows(samples: torch.Tensor, depth: int, channels: int,
+              width: int) -> torch.Tensor:
+    """Raw samples ``(B, H, width, channels)`` int32 → scanline bytes
+    ``(B, H, pitch)`` uint8: big-endian 16-bit samples, MSB-first sub-byte
+    samples (the inverse of :func:`samples_from_rows`)."""
+    B, H = samples.shape[:2]
+    if depth == 16:
+        flat = samples.reshape(B, H, -1)
+        return torch.stack([(flat >> 8) & 0xFF, flat & 0xFF], dim=-1
+                           ).reshape(B, H, -1).to(torch.uint8)
+    if depth == 8:
+        return samples.reshape(B, H, -1).to(torch.uint8)
+    per = 8 // depth
+    pitch = (width * depth + 7) >> 3
+    i = torch.arange(width, device=samples.device)
+    shift = ((per - 1 - (i % per)) * depth).to(torch.int32)
+    contrib = (samples[..., 0] & ((1 << depth) - 1)) << shift
+    # the shifted samples of one byte are bit-disjoint: their sum is the OR
+    out = torch.zeros((B, H, pitch), dtype=torch.int32,
+                      device=samples.device)
+    out.index_add_(2, i // per, contrib.to(torch.int32))
+    return out.to(torch.uint8)
 
 
 def unpack_rgba(rows: torch.Tensor, *, depth: int, channels: int,

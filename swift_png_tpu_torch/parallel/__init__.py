@@ -1,1 +1,1 @@
-"""Batched decode entry points of the port."""
+"""Batched decode and encode entry points of the port."""

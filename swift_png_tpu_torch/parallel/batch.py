@@ -1,9 +1,13 @@
-"""Batched indexed PNG decode on the GPU.
+"""Batched PNG decode and encode on the GPU.
 
-Counterpart of ``decode_indexed``, ``decode_stage`` and
-``_palette_key_arrays`` in ``swift_png_tpu/parallel/batch.py``: lex each
-PNG, read its ``spIx`` checkpoint chunk, inflate the whole batch with the
-checkpoint-parallel kernel, then defilter (K3) and convolve to RGBA.
+Counterpart of ``decode_indexed``, ``decode_stage``,
+``_palette_key_arrays``, ``encode_stage`` and ``BatchCodec.encode`` in
+``swift_png_tpu/parallel/batch.py``.  Decode lexes each PNG, reads its
+``spIx`` checkpoint chunk, inflates the whole batch with the
+checkpoint-parallel kernel, then defilters (K3) and convolves to RGBA.
+Encode packs and filters every scanline of the batch on the device, then
+deflates the batch with the level 8–13 optimal parse (K4, K5, K6) and
+writes the containers on the host.
 """
 
 from __future__ import annotations
@@ -11,15 +15,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._host.lz77.index import CheckpointIndex
+from .._host.lz77.index import CheckpointIndex, build_index
 from .._host.png import chunk as chunks
 from .._host.png import parsing
+from .._host.png.format import recognize_pixel
+from .._host.png.image import write_pre_idat
 from .._kernels import resolve_device
 from ..ops import convolve
+from ..ops.deflate_optimal import batch_layout, deflate_device_optimal_batch
+from ..ops.filter import filter_select_batch
 from ..ops.inflate_checkpoint import CheckpointInflator
 from ..ops.unfilter import defilter_batch
 
-__all__ = ["decode_indexed", "decode_stage", "parse_indexed"]
+__all__ = ["decode_indexed", "decode_stage", "parse_indexed",
+           "encode_stage", "BatchCodec"]
 
 
 def decode_stage(filtered: torch.Tensor, *, delay: int, depth: int,
@@ -142,3 +151,105 @@ def decode_indexed(pngs: list[bytes], bits: int = 8, device=None):
         has_key=key is not None,
         key=None if key is None else torch.from_numpy(key).to(dev),
         bits=bits)
+
+
+def encode_stage(rows: torch.Tensor, delay: int) -> torch.Tensor:
+    """Raw scanlines ``(B, H, pitch)`` → filtered scanlines with filter
+    bytes ``(B, H, 1+pitch)``, on the input's device."""
+    return filter_select_batch(rows, delay)
+
+
+# the non-indexed standard kinds by name: (depth, color type)
+_KINDS = {"v1": (1, 0), "v2": (2, 0), "v4": (4, 0), "v8": (8, 0),
+          "v16": (16, 0), "va8": (8, 4), "va16": (16, 4), "rgb8": (8, 2),
+          "rgb16": (16, 2), "rgba8": (8, 6), "rgba16": (16, 6)}
+
+
+class BatchCodec:
+    """Batch encode of same-shape images on one device.
+
+    ``device``: ``cuda`` unless the caller names another; ``"cpu"`` runs
+    the plain PyTorch versions of the kernels.  With no device named and
+    no GPU present this raises.
+    """
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def encode(self, pixels, level: int = 9, bits: int = 8,
+               kind: str | None = None, palette: tuple | None = None,
+               hint: int = 1 << 15, index: bool = False, *,
+               palettes: list | None = None, interlaced: bool = False,
+               metadata=None, shared_trees: bool = False,
+               size_policy: str = "strict") -> list[bytes]:
+        """Batch encode raw samples → standard PNG byte strings, the same
+        bytes as the JAX ``BatchCodec.encode`` without its native library.
+
+        ``pixels``: ``(B, H, W, C)`` samples in the target depth (numpy or
+        torch; sub-byte gray kinds take raw ``depth``-bit samples, ``(B,
+        H, W)`` is read as one channel).  Serves the non-interlaced,
+        non-indexed kinds (v1/2/4/8/16, va8/16, rgb8/16, rgba8/16) at
+        levels 8–13: filter select on the device, the batched optimal
+        parse, IDAT chunks of ``hint`` bytes, an ``spIx`` checkpoint chunk
+        with ``index=True``, IEND.  ``size_policy`` is accepted; the port
+        has no native tier, so ``"strict"`` ships the device parse.
+
+        Indexed kinds, palettes, interlacing, metadata, shared trees and
+        levels ≤ 7 raise ``NotImplementedError``: they are queued in
+        ``ROADMAP.md`` (queue 1).
+        """
+        if kind is None:
+            kind = "rgba8" if bits == 8 else "rgba16"
+        why = None
+        if kind not in _KINDS:
+            why = f"kind {kind!r} (indexed and iOS kinds)"
+        elif palette is not None or palettes is not None:
+            why = "palettes"
+        elif interlaced:
+            why = "interlaced encode"
+        elif metadata is not None:
+            why = "metadata chunks"
+        elif shared_trees:
+            why = "shared trees"
+        elif level < 8:
+            why = f"level {level} (levels <= 7)"
+        if why is not None:
+            raise NotImplementedError(
+                f"BatchCodec.encode: {why} is not ported yet (ROADMAP.md, "
+                f"queue 1: levels <= 7 and shared trees; interlaced, "
+                f"indexed and metadata encode)")
+        pixel = recognize_pixel(_KINDS[kind])
+        x = (pixels if isinstance(pixels, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(pixels)))
+        if x.dim() == 3:
+            x = x[..., None]
+        B, H, W, Cn = x.shape
+        if Cn != pixel.channels:
+            raise ValueError(f"{kind} wants {pixel.channels} channels, "
+                             f"got {Cn}")
+        delay = max(1, (pixel.volume + 7) >> 3)
+        samples = x.to(device=self.device, dtype=torch.int32)
+        rows = convolve.pack_rows(samples, pixel.depth, Cn, W)
+        filtered = encode_stage(rows, delay).reshape(B, -1)
+        n_flat = filtered.shape[1]
+        stride = batch_layout([n_flat] * B)[0]
+        dbuf = torch.nn.functional.pad(filtered, (0, stride - n_flat))
+        flat_np = filtered.cpu().numpy()
+        datas = [flat_np[b].tobytes() for b in range(B)]
+        idats = deflate_device_optimal_batch(
+            datas, level=level, pitch=W * delay + 1, bpp=delay,
+            device=self.device, dbuf=dbuf.reshape(-1),
+            size_policy=size_policy)
+        outs = []
+        for data, idat in zip(datas, idats):
+            dest = chunks.ByteDestination()
+            write_pre_idat(dest, (W, H), pixel)
+            for ofs in range(0, len(idat), hint):
+                dest.format(chunks.IDAT, idat[ofs:ofs + hint])
+            if index:
+                ix = build_index(idat[2:-4], len(data), 256)
+                if ix is not None:
+                    dest.format(chunks.spIx, ix.serialize())
+            dest.format(chunks.IEND)
+            outs.append(dest.getvalue())
+        return outs

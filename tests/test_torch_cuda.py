@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from swift_png_tpu_torch import _kernels, decode_indexed
+from swift_png_tpu_torch import BatchCodec, _kernels, decode_indexed
 from swift_png_tpu_torch._host.lz77.index import build_index
+from swift_png_tpu_torch.ops import deflate_optimal as tdo
+from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_cuda,
+                                                  emit_terms_reference)
 from swift_png_tpu_torch.ops.inflate_checkpoint import CheckpointInflator
 from swift_png_tpu_torch.ops.inflate_seqcopy import (seqcopy_cuda,
                                                      seqcopy_reference)
@@ -103,7 +106,8 @@ def test_decode_indexed_on_card_counts_launches(cuda):
     out = decode_indexed([blob, blob])
     assert out.device.type == "cuda"
     assert _kernels.launch_counts() == {"decode_stamp": 1, "defilter": 1,
-                                        "seqcopy": 0}
+                                        "seqcopy": 0, "cand": 0,
+                                        "dp_parse": 0, "emit": 0}
     assert torch.equal(out.cpu(), torch.from_numpy(np.stack([px, px])))
 
 
@@ -169,5 +173,77 @@ def test_decode_indexed_records_mode_on_card(cuda):
     _kernels.reset_launches()
     out = decode_indexed(pngs)
     assert _kernels.launch_counts() == {"decode_stamp": 1, "defilter": 1,
-                                        "seqcopy": 1}
+                                        "seqcopy": 1, "cand": 0,
+                                        "dp_parse": 0, "emit": 0}
     assert torch.equal(out.cpu(), torch.from_numpy(np.stack(images)))
+
+
+def _encode_case(cuda):
+    """Two streams of one tile each (noisy waves, and rows repeated with
+    small changes and a flat run), per-image menus padded with 0 slots."""
+    rng = np.random.default_rng(11)
+    tile = tdo.TILE
+    ns = [20_500, 9_001]
+    data = np.zeros(2 * tile, np.uint8)
+    y = (np.sin(np.arange(ns[0]) / 7.0) * 60 + 128).astype(np.int64)
+    data[:ns[0]] = np.clip(y + rng.integers(-9, 10, ns[0]), 0, 255)
+    row = rng.integers(0, 256, 200, dtype=np.uint8)
+    rows = (np.tile(row, 46)[:ns[1]]
+            + np.repeat(np.arange(46), 200)[:ns[1]] % 3)
+    data[tile:tile + ns[1]] = rows
+    data[tile + 3000: tile + 5000] = 7
+    plan = tdo._batch_inputs([data[:ns[0]].tobytes(),
+                              data[tile:tile + ns[1]].tobytes()],
+                             4, 200, cuda)
+    return plan
+
+
+def test_cand_kernel_matches_plain(cuda):
+    p = _encode_case(cuda)
+    args = (p["dists2"], p["decades2"], p["dbuf"], p["nvec"])
+    got = tdo.menu_candidates_cuda(*args, dmax=p["dmax"], stride=p["stride"])
+    torch.cuda.synchronize()
+    want = tdo.menu_candidates_reference(*args, dmax=p["dmax"],
+                                         stride=p["stride"])
+    assert torch.equal(got, want)
+
+
+def test_dp_parse_and_emit_kernels_match_plain(cuda):
+    p = _encode_case(cuda)
+    cand = tdo.menu_candidates_cuda(p["dists2"], p["decades2"], p["dbuf"],
+                                    p["nvec"], dmax=p["dmax"],
+                                    stride=p["stride"])
+    rng = np.random.default_rng(5)
+    tabs = [torch.from_numpy(rng.integers(6, 60, (2, w)).astype(np.int32)
+                             ).to(cuda) for w in (256, 256, 32)]
+    args = (p["dbuf"], p["clen"], cand, *tabs)
+    got = tdo.optimal_parse_cuda(*args, tpi=1)
+    torch.cuda.synchronize()
+    want = tdo.optimal_parse_reference(*args, tpi=1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    terms, _, hist = got
+    etabs = torch.from_numpy(tdo._host_trees(
+        hist.cpu().numpy().astype(np.int64))[1]).to(cuda)
+    for per_image in (tdo.TILE, 1024):
+        t = terms[: 2 * per_image]
+        e = emit_terms_cuda(t, etabs, per_image)
+        torch.cuda.synchronize()
+        for g, w in zip(e, emit_terms_reference(t, etabs, per_image)):
+            assert torch.equal(g, w)
+
+
+def test_encode_on_card_decodes_back(cuda):
+    rng = np.random.default_rng(3)
+    px = rng.integers(0, 256, (2, 48, 64, 4)).astype(np.uint8)
+    px[1] = px[1] // 16 * 16
+    _kernels.reset_launches()
+    pngs = BatchCodec().encode(px, level=9, kind="rgba8", index=True)
+    counts = _kernels.launch_counts()
+    assert (counts["cand"], counts["dp_parse"], counts["emit"]) == (1, 4, 1)
+    assert pngs == BatchCodec("cpu").encode(px, level=9, kind="rgba8",
+                                            index=True)
+    _kernels.reset_launches()
+    out = decode_indexed(pngs)
+    assert _kernels.launch_counts()["decode_stamp"] == 1
+    assert torch.equal(out.cpu(), torch.from_numpy(px))
