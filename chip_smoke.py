@@ -17,7 +17,16 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
 * the match-dominated ``sweeps`` configuration: the same images filtered
   ``y % 5``, as complete zlib streams through ``CheckpointInflator.
   inflate_zlib_batch`` (K1, the distance sweeps, the collapse residual,
-  the trailer checks).
+  the trailer checks);
+* the level-9 encode (``BatchCodec.encode``) of photographic and smooth
+  images, read back through :func:`decode_indexed` (K4, K5, K6; K1, K3
+  or K2).
+
+Beside the main batches, K1 is held against its plain version on a stored
+stream, a level-1 RLE stream, a stream with 15-bit literal codes and a
+corrupt body (flags compared), and K5 on inputs built to tie and on cost
+tables × 2,000.  K5 is timed on the photographic and the smooth
+batch; the ``warps_per_sm`` line gives K1's and K5's resident warps.
 
 Each path checks its output against the source and zlib's Adler-32, and
 each kernel of a path must have launched while the path ran.  Every phase
@@ -528,6 +537,60 @@ def encode_kernel_checks(dev, config: str, px: np.ndarray,
     return out
 
 
+def k5_edge_checks(dev) -> int:
+    """K4 and K5 against their plain versions on inputs built for K5's
+    edge cases.  To tie: the filtered bytes of four all-zero 256×256 rgba8
+    images (candidates d = 1 and d = 2), and four whose bytes alternate
+    with period 2 (d = 2 and d = 4); with the first iteration's generic
+    tables both candidates of a position cost the same at every length, so
+    each relaxation ties and the merged relax must keep candidate 0.  Large
+    costs: four photographic and four smooth 256×256 images with the first
+    iteration's tables × 2,000 (entries near 2^17, under the wrapper's cap
+    of 2^20).  Returns K5's worst error."""
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+
+    n = 256 * (1 + 256 * 4)
+    cases = [(name, tdo._batch_inputs([data] * 4, 4, 256 * 4 + 1, dev), 1)
+             for name, data in (("all_zero", bytes(n)),
+                                ("two_period", bytes([0x21, 0x7E])
+                                 * (n // 2)))]
+    cases += [(f"large_tables_{config}",
+               encode_plan(dev, encode_images(config, 4, 256, 256))[2], 2000)
+              for config in ("photographic", "smooth")]
+    worst = 0
+    for name, plan, scale in cases:
+        cargs = (plan["dists2"], plan["decades2"], plan["dbuf"],
+                 plan["nvec"])
+        ckw = dict(dmax=plan["dmax"], stride=plan["stride"])
+        cand = tdo.menu_candidates_cuda(*cargs, **ckw)
+        torch.cuda.synchronize()
+        k4_err = max_abs([(cand, tdo.menu_candidates_reference(*cargs,
+                                                               **ckw))])
+        tables = [t * scale for t in tdo._initial_tables(plan, ENC_LEVEL)[:3]]
+        dargs = (plan["dbuf"], plan["clen"], cand, *tables)
+        got = tdo.optimal_parse_cuda(*dargs, tpi=plan["TPI"])
+        torch.cuda.synchronize()
+        want = tdo.optimal_parse_reference(*dargs, tpi=plan["TPI"])
+        err = max_abs(zip(got, want))
+        worst = max(worst, err, k4_err)
+        # positions where both candidates have edges at equal decade cost
+        ddep = tables[2][0].long()
+        dd = [tdo._decade_of((cand[k].long() >> 9)).clamp(0, 31)
+              for k in range(2)]
+        both = ((cand[0] & 0x1FF) >= 3) & ((cand[1] & 0x1FF) >= 3)
+        ties = int((both & (ddep[dd[0]] == ddep[dd[1]])).sum())
+        emit(phase="k5_edge_check", case=name, images=4,
+             bytes_per_image=int(plan["nvec"][0]), table_scale=scale,
+             tie_positions=ties, terms=int(got[1].sum()),
+             k4_max_abs_err=k4_err, k5_max_abs_err=err)
+        if err or k4_err:
+            fail(f"K4/K5 differ from their plain versions on {name}")
+        # every position ties but the few before both candidates reach
+        if scale == 1 and ties < 4 * n - 64:
+            fail(f"{name}: only {ties} of {4 * n} positions tie")
+    return worst
+
+
 def idat_streams(pngs: list[bytes]) -> list[bytes]:
     """Each PNG's concatenated IDAT payload, read with the port's lexer;
     fails unless every PNG carries an ``spIx`` chunk."""
@@ -651,6 +714,53 @@ def encode_path(dev, config: str) -> dict:
     return launches
 
 
+def k1_args(prep: dict) -> tuple:
+    """K1's inputs from a prepared batch."""
+    return (prep["spans"], prep["meta"], prep["pool_t"], prep["pool_s"],
+            prep["ids"], prep["kbound"])
+
+
+def k1_max_code_bits(prep: dict) -> int:
+    """The longest literal/length code of a prepared batch's blocks: the
+    first threshold equal to the last (2^15) gives the length."""
+    thr = prep["pool_t"][:, 1:16].long()
+    full = (thr >= (1 << 15)).long()
+    return int((16 - full.sum(1)).clamp(max=15).max())
+
+
+def fifteen_bit_stream() -> bytes:
+    """Fibonacci symbol counts, shuffled, compressed Huffman-only at level
+    9: the rarest literals take 15-bit codes."""
+    f = [1, 2]
+    while len(f) < 22:
+        f.append(f[-1] + f[-2])
+    syms = np.repeat((np.arange(22) * 37 + 5) % 256, f)
+    np.random.default_rng(7).shuffle(syms)
+    co = zlib.compressobj(9, zlib.DEFLATED, 15, 9, zlib.Z_HUFFMAN_ONLY)
+    return co.compress(syms.astype(np.uint8).tobytes()) + co.flush()
+
+
+def k1_extra_streams(rng) -> dict:
+    """K1's check cases beside the main batch: ``{name: (zlib stream,
+    body to decode)}``.  ``corrupt`` decodes a body with bits flipped in
+    its first dynamic block with the intact body's index."""
+    photo = filter_rows(bench_image(3, 128, 128).reshape(128, 512), 4)
+    good = zlib.compress(photo.tobytes(), 9)
+    bad = bytearray(good[2:-4])
+    for at in range(len(bad) // 4, len(bad) // 4 + 200):
+        bad[at] ^= 0x5A
+    out = {
+        "stored": zlib.compress(rng.integers(0, 256, 150_000, np.uint8)
+                                .tobytes(), 0),
+        "rle_level1": zlib.compress(b"x" * 700 + b"yz" * 700 + b"x" * 5000,
+                                    1),
+        "fifteen_bit": fifteen_bit_stream(),
+    }
+    out = {k: (s, s[2:-4]) for k, s in out.items()}
+    out["corrupt"] = (good, bytes(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -714,46 +824,45 @@ def main() -> int:
     bodies = [streams[i][2:-4] for i in order]
     prep = eng.prepare(bodies, [indexes[i] for i in order])
     rng = np.random.default_rng(1)
-    extra = {
-        "stored": zlib.compress(rng.integers(0, 256, 150_000, np.uint8)
-                                .tobytes(), 0),
-        "rle_level1": zlib.compress(b"x" * 700 + b"yz" * 700 + b"x" * 5000,
-                                    1),
-    }
     k1_cases = {"main": prep}
-    for name, s in extra.items():
+    for name, (s, body) in k1_extra_streams(rng).items():
         raw = zlib.decompress(s)
         ix = build_index(s[2:-4], len(raw), OB)
         if ix is None:
             fail(f"{name} stream did not index")
-        k1_cases[name] = eng.prepare([s[2:-4]], [ix])
+        k1_cases[name] = eng.prepare([body], [ix])
     k1_err = 0
     for name, p in k1_cases.items():
-        args = (p["spans"], p["meta"], p["tabs"], p["symtab"], p["kbound"])
+        args = k1_args(p)
         got = decode_stamp_cuda(*args, ob=OB)
         torch.cuda.synchronize()
         want = decode_stamp_reference(*args, ob=OB)
-        owned = (torch.arange(OB, device=dev)
-                 < p["meta"][:, 2:3].long())
-        pairs = [(got[0][owned], want[0][owned])] + list(zip(got[1:],
-                                                             want[1:]))
-        err = max_abs(pairs)
+        err = max_abs(zip(got, want))
         k1_err = max(k1_err, err)
         if name == "main":
             # literal tokens are one byte each and never straddle a unit
+            owned = (torch.arange(OB, device=dev)
+                     < p["meta"][:, 2:3].long())
             literals = int((owned & (got[0] < 0) & (got[0] != -32768))
                            .sum())
         emit(phase="k1_check", case=name, units=int(p["spans"].shape[0]),
              multiblock=p["multiblock"], stored=p["has_stored"],
-             max_abs_err=err, flags=int(got[1].count_nonzero()))
+             blocks=int(p["pool_t"].shape[0]),
+             max_lit_code_bits=k1_max_code_bits(p), max_abs_err=err,
+             flags=int(got[1].count_nonzero()))
         if err:
             fail(f"K1 differs from its plain version on {name}")
-    args = (prep["spans"], prep["meta"], prep["tabs"], prep["symtab"],
-            prep["kbound"])
+        if (name == "corrupt") != bool(got[1].count_nonzero()):
+            fail(f"K1 flags on {name}: {int(got[1].count_nonzero())}")
+        if name == "fifteen_bit" and k1_max_code_bits(p) != 15:
+            fail("the fifteen_bit stream has no 15-bit literal code")
+    args = k1_args(prep)
     k1_ms = cuda_ms(lambda: decode_stamp_cuda(*args, ob=OB), 10)
     k1_plain_ms = cuda_ms(lambda: decode_stamp_reference(*args,
                                                                 ob=OB), 1)
     U = int(prep["spans"].shape[0])
+    # every input read once (the table pool once, not per unit) and every
+    # output written once
     k1_bytes = (sum(t.numel() * t.element_size() for t in args)
                 + U * OB * 4 + U * (4 + 8 + 8))
     # the tokens this run's units decode, by kind: a unit decodes at most
@@ -870,15 +979,26 @@ def main() -> int:
     checks = [encode_kernel_checks(dev, config, encode_images(config, 4, 256,
                                                               256))
               for config in ("photographic", "smooth")]
+    edge_err = k5_edge_checks(dev)
     enc_launches = encode_path(dev, "photographic")
     encode_path(dev, "smooth")
     enc = encode_kernel_checks(dev, "photographic",
                                encode_images("photographic", B, H, W),
                                timed=True)
-    checks += [enc, encode_kernel_checks(dev, "smooth",
-                                         encode_images("smooth", B, H, W))]
+    enc_smooth = encode_kernel_checks(dev, "smooth",
+                                      encode_images("smooth", B, H, W),
+                                      timed=True)
+    checks += [enc, enc_smooth]
     enc_err = {k: max(c[f"{k}_max_abs_err"] for c in checks)
                for k in ("k4", "k5", "k6")}
+    enc_err["k5"] = max(enc_err["k5"], edge_err)
+    b_smooth = bound(enc_smooth["k5_bytes"], enc_smooth["k5_ops"])
+    emit(phase="k5_smooth", ms=enc_smooth["k5_ms"],
+         plain_ms=enc_smooth["k5_plain_ms"], bound_ms=b_smooth[0],
+         bound_by=b_smooth[1], edges=enc_smooth["k5_edges"])
+    emit(phase="warps_per_sm",
+         **{name: kernels[name].resident_warps()
+            for name in ("decode_stamp", "dp_parse")})
     emit(phase="bounds", k1_tokens=tokens, k1_literals=literals,
          k1_matches=matches, k1_eobs=eobs, k1_bytes=k1_bytes, k1_ops=k1_ops,
          k3_bytes=k3_bytes, k3_ops=k3_ops, k2_records=k2["records"],

@@ -61,10 +61,26 @@ class Kernel:
                                f"{msg}")
         self.launches += 1
 
+    def resident_warps(self) -> int | None:
+        """Warps of the kernel one SM holds at its launch shape (CUDA's
+        occupancy calculator), where its source reports it."""
+        if self._fn is None:
+            build()
+        fn = getattr(self._lib, "spt_resident_warps", None)
+        if fn is None:
+            return None
+        warps = ctypes.c_int(0)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        rc = fn(ctypes.byref(warps))
+        if rc != 0:
+            raise RuntimeError(f"{self.name}: occupancy query failed ({rc})")
+        return warps.value
+
 
 KERNELS = {
     "decode_stamp": Kernel("decode_stamp", "inflate_stamp.cu",
-                           "spt_decode_stamp", [_P] * 9 + [_I] * 5 + [_P]),
+                           "spt_decode_stamp", [_P] * 10 + [_I] * 5 + [_P]),
     "defilter": Kernel("defilter", "defilter.cu", "spt_defilter",
                        [_P, _P, _I, _I, _I, _I, _P]),
     "seqcopy": Kernel("seqcopy", "seqcopy.cu", "spt_seqcopy",

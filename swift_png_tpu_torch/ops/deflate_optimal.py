@@ -56,6 +56,7 @@ NB = 1024        # DP chunk length (bytes)
 KCAND = 2        # match edges per position fed to the DP
 DMAX_STEP = 8    # menu slots are padded to a multiple of this
 INF = 1 << 28
+DP_COST_CAP = 1 << 20  # K5 refuses larger table entries (sums < 2^31)
 TILE = 128 * NB  # positions per JAX tile; image strides are multiples
 
 
@@ -298,12 +299,19 @@ def _dp_constants(dev):
 
 def optimal_parse_cuda(data, clen, cand, dep_lit, runcost, ddep, *,
                        tpi: int):
-    """Launch K5 (``csrc/dp_parse.cu``)."""
+    """Launch K5 (``csrc/dp_parse.cu``).  Its sums are exact only while no
+    int32 cost can wrap, so it refuses a cost table with an entry outside
+    ``[0, 2^20)``."""
     _check_dp(data, clen, cand, dep_lit, runcost, ddep, tpi)
     _kernels.require(data, "data", torch.uint8, 1)
     for t, name in ((clen, "clen"), (cand, "cand"), (dep_lit, "dep_lit"),
                     (runcost, "runcost"), (ddep, "ddep")):
         _kernels.require(t, name, torch.int32, t.dim())
+    lo, hi = torch.cat([dep_lit.view(-1), runcost.view(-1),
+                        ddep.view(-1)]).aminmax()
+    if int(lo) < 0 or int(hi) >= DP_COST_CAP:
+        raise ValueError(f"optimal_parse: cost table entries must lie in "
+                         f"[0, {DP_COST_CAP})")
     dev = data.device
     rdinfo, dbase = _dp_constants(dev)
     Ntot = data.shape[0]

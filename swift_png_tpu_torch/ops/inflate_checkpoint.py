@@ -328,8 +328,9 @@ def inflate_indexed_stamp(prep: dict, **modes):
 
 def stamp(prep: dict):
     """K1 on a prepared batch: ``(attr, flag, s1, s2)``."""
-    return decode_stamp(prep["spans"], prep["meta"], prep["tabs"],
-                        prep["symtab"], prep["kbound"], ob=prep["ob"])
+    return decode_stamp(prep["spans"], prep["meta"], prep["pool_t"],
+                        prep["pool_s"], prep["ids"], prep["kbound"],
+                        ob=prep["ob"])
 
 
 def stamp_match_total(attr, prep: dict) -> int:
@@ -481,9 +482,11 @@ class CheckpointInflator:
         Returns a dict of tensors on the device: ``spans (U, S)`` int32
         words, ``meta (U, 3|4)`` int32 (sub-bit, skip, owned bytes — 0 for
         stored units, which the tail fills —, and with multiblock tables
-        the boundary-EOB bit jump), ``tabs (U, 72|144)`` and ``symtab
-        (U, R|2R)`` int32 per-unit tables (the unit's block, then its next
-        block), ``kbound (U,)`` int32 token bounds and, where any unit is
+        the boundary-EOB bit jump), the table pool ``pool_t (P, 72)`` and
+        ``pool_s (P, R)`` int32 (one row per DEFLATE block of the batch),
+        ``ids (U, 1|2)`` int32 (each unit's block in the pool and, with
+        multiblock tables, its next block), ``kbound (U,)`` int32 token
+        bounds and, where any unit is
         stored, ``stored_gap (2·NG, U)`` int32 (rows ``0…NG``: gap
         offsets, ``-1`` in row 0 for token units and ``ob`` for absent
         gaps; rows ``NG…2·NG``: gap widths); plus the batch's scalars,
@@ -526,8 +529,7 @@ class CheckpointInflator:
         sgap = np.full((n_gaps, U), -1, np.int32)
         sgap[1:] = ob          # rank-2+ gaps: ob = "never" when absent
         sglen = np.zeros((n_gaps, U), np.int32)
-        tab_a = np.zeros(U, np.int64)   # per-unit ids into the table pool
-        tab_b = np.zeros(U, np.int64)
+        ids = np.zeros((U, 2 if multiblock else 1), np.int32)
         pool_lit, pool_dist = [], []
         for i, (body, ix) in enumerate(zip(bodies, indexes)):
             sb = (ix.bit_pos >> 3).astype(np.int64)
@@ -565,8 +567,10 @@ class CheckpointInflator:
             for bnum in range(ix.n_blocks):
                 pool_lit.append(ix.lit_lengths[bnum])
                 pool_dist.append(ix.dist_lengths[bnum])
-            tab_a[rows] = p0 + ix.unit_block
-            tab_b[rows] = p0 + np.minimum(ix.unit_block + 1, ix.n_blocks - 1)
+            ids[rows, 0] = p0 + ix.unit_block
+            if multiblock:
+                ids[rows, 1] = p0 + np.minimum(ix.unit_block + 1,
+                                               ix.n_blocks - 1)
         pool_lit = np.stack(pool_lit)
         tabs_all, sym_all = prepare_block_tables(pool_lit,
                                                  np.stack(pool_dist))
@@ -577,21 +581,16 @@ class CheckpointInflator:
         dev = self.device
         spans = torch.from_numpy(buf).to(dev).unfold(0, S * 4, 1)[
             torch.from_numpy(starts).to(dev)]
-        pool_t = torch.from_numpy(tabs_all).to(dev)
-        pool_s = torch.from_numpy(np.ascontiguousarray(sym_all[:, :R])).to(dev)
-        ids_a = torch.from_numpy(tab_a).to(dev)
-        tabs, symtab = pool_t[ids_a], pool_s[ids_a]
-        if multiblock:
-            ids_b = torch.from_numpy(tab_b).to(dev)
-            tabs = torch.cat([tabs, pool_t[ids_b]], dim=1)
-            symtab = torch.cat([symtab, pool_s[ids_b]], dim=1)
         return dict(
             out_size=out_size, ob=ob, B=B, Ui=Ui, S=S,
             multiblock=multiblock, has_stored=has_stored,
             match_total=sum(int(ix.match_bytes) for ix in indexes),
             spans=spans.view(torch.int32),
             meta=torch.from_numpy(meta).to(dev),
-            tabs=tabs.contiguous(), symtab=symtab.contiguous(),
+            pool_t=torch.from_numpy(tabs_all).to(dev),
+            pool_s=torch.from_numpy(np.ascontiguousarray(sym_all[:, :R])
+                                    ).to(dev),
+            ids=torch.from_numpy(ids).to(dev),
             kbound=torch.from_numpy(kbound).to(dev),
             stored_gap=(torch.from_numpy(np.concatenate([sgap, sglen]))
                         .to(dev) if has_stored else None))

@@ -20,9 +20,10 @@ tensors on the CPU.
 Inputs are unit-major (row ``u`` is unit ``u``): ``spans (U, S)`` int32
 span words (little-endian stream bytes), ``meta (U, 3|4)`` int32 — sub-bit,
 skip, owned bytes and, with multiblock tables, the boundary-EOB bit jump —,
-``tabs (U, 72|144)`` and ``symtab (U, R|2R)`` int32 per-unit tables
-(:func:`prepare_block_tables` columns; the second half is the unit's next
-block), and ``kbound (U,)`` int32, the unit's token bound from its index.
+the batch's table pool, ``pool_t (P, 72)`` and ``pool_s (P, R)`` int32 (one
+row per DEFLATE block, :func:`prepare_block_tables`), ``ids (U, 1|2)``
+int32, each unit's block and, with multiblock tables, its next block, and
+``kbound (U,)`` int32, the unit's token bound from its index.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ import torch
 from .. import _kernels
 
 __all__ = ["decode_stamp", "decode_stamp_cuda", "decode_stamp_reference",
-           "prepare_block_tables", "TAB_ROWS", "SENTINEL"]
+           "decode_stamp_units", "prepare_block_tables", "unit_tables",
+           "TAB_ROWS", "SENTINEL"]
 
-TAB_ROWS = 72      # packed per-unit table rows (see prepare_block_tables)
+TAB_ROWS = 72      # packed table rows per block (see prepare_block_tables)
 SENTINEL = -32768  # attr value for "byte not covered"
 
 
@@ -101,38 +103,53 @@ def prepare_block_tables(lit_lengths: np.ndarray, dist_lengths: np.ndarray):
     return (tabs[0], symtab[0]) if single else (tabs, symtab)
 
 
-def _layout(spans, meta, tabs, symtab, kbound):
+def _layout(spans, meta, pool_t, pool_s, ids, kbound):
     """(U, S, multiblock, R) from the input shapes, checked."""
     U, S = spans.shape
     multiblock = meta.shape[1] == 4
     if meta.shape != (U, 4 if multiblock else 3):
         raise ValueError(f"meta must be (U, 3|4), got {tuple(meta.shape)}")
-    if tabs.shape != (U, 2 * TAB_ROWS if multiblock else TAB_ROWS):
-        raise ValueError(f"tabs must be (U, 72|144) matching meta, got "
-                         f"{tuple(tabs.shape)}")
-    srows = symtab.shape[1]
-    if symtab.shape[0] != U or (multiblock and srows % 2) or srows == 0:
-        raise ValueError(f"symtab must be (U, R|2R), got "
-                         f"{tuple(symtab.shape)}")
+    if ids.shape != (U, 2 if multiblock else 1):
+        raise ValueError(f"ids must be (U, 1|2) matching meta, got "
+                         f"{tuple(ids.shape)}")
+    if pool_t.dim() != 2 or pool_t.shape[1] != TAB_ROWS:
+        raise ValueError(f"pool_t must be (P, {TAB_ROWS}), got "
+                         f"{tuple(pool_t.shape)}")
+    if (pool_s.dim() != 2 or pool_s.shape[0] != pool_t.shape[0]
+            or pool_s.shape[1] == 0):
+        raise ValueError(f"pool_s must be (P, R) beside pool_t, got "
+                         f"{tuple(pool_s.shape)}")
     if kbound.shape != (U,):
         raise ValueError(f"kbound must be (U,), got {tuple(kbound.shape)}")
-    return U, S, multiblock, srows // 2 if multiblock else srows
+    # the kernel indexes the pool by these ids: none may leave it
+    if U and not 0 <= int(ids.min()) <= int(ids.max()) < pool_t.shape[0]:
+        raise ValueError(f"ids must index the pool's {pool_t.shape[0]} "
+                         f"blocks")
+    return U, S, multiblock, pool_s.shape[1]
 
 
-def decode_stamp(spans, meta, tabs, symtab, kbound, *, ob: int):
+def unit_tables(pool_t, pool_s, ids):
+    """Each unit's own copy of its tables, ``(tabs (U, 72|144), symtab
+    (U, R|2R))``: its block's columns, then its next block's."""
+    U = ids.shape[0]
+    i = ids.long()
+    return pool_t[i].reshape(U, -1), pool_s[i].reshape(U, -1)
+
+
+def decode_stamp(spans, meta, pool_t, pool_s, ids, kbound, *, ob: int):
     """K1 on the inputs' device.  Returns ``(attr (U, ob) int32, flag (U,)
     int32, s1 (U,) int64, s2 (U,) int64)``."""
     if spans.device.type == "cpu":
-        return decode_stamp_reference(spans, meta, tabs, symtab, kbound,
-                                      ob=ob)
-    return decode_stamp_cuda(spans, meta, tabs, symtab, kbound, ob=ob)
+        return decode_stamp_reference(spans, meta, pool_t, pool_s, ids,
+                                      kbound, ob=ob)
+    return decode_stamp_cuda(spans, meta, pool_t, pool_s, ids, kbound, ob=ob)
 
 
-def decode_stamp_cuda(spans, meta, tabs, symtab, kbound, *, ob: int):
+def decode_stamp_cuda(spans, meta, pool_t, pool_s, ids, kbound, *, ob: int):
     """Launch the K1 CUDA kernel (``csrc/inflate_stamp.cu``)."""
-    U, S, multiblock, R = _layout(spans, meta, tabs, symtab, kbound)
-    for name, t in (("spans", spans), ("meta", meta), ("tabs", tabs),
-                    ("symtab", symtab), ("kbound", kbound)):
+    U, S, multiblock, R = _layout(spans, meta, pool_t, pool_s, ids, kbound)
+    for name, t in (("spans", spans), ("meta", meta), ("pool_t", pool_t),
+                    ("pool_s", pool_s), ("ids", ids), ("kbound", kbound)):
         _kernels.require(t, name, torch.int32, 1 if name == "kbound" else 2)
     dev = spans.device
     attr = torch.empty((U, ob), dtype=torch.int32, device=dev)
@@ -140,10 +157,10 @@ def decode_stamp_cuda(spans, meta, tabs, symtab, kbound, *, ob: int):
     s1 = torch.empty(U, dtype=torch.int64, device=dev)
     s2 = torch.empty(U, dtype=torch.int64, device=dev)
     _kernels.KERNELS["decode_stamp"].launch(
-        spans.data_ptr(), meta.data_ptr(), tabs.data_ptr(),
-        symtab.data_ptr(), kbound.data_ptr(), attr.data_ptr(),
-        flag.data_ptr(), s1.data_ptr(), s2.data_ptr(), U, S, ob, R,
-        int(multiblock), _kernels.stream_of(spans))
+        spans.data_ptr(), meta.data_ptr(), pool_t.data_ptr(),
+        pool_s.data_ptr(), ids.data_ptr(), kbound.data_ptr(),
+        attr.data_ptr(), flag.data_ptr(), s1.data_ptr(), s2.data_ptr(), U, S,
+        ob, R, int(multiblock), _kernels.stream_of(spans))
     return attr, flag, s1, s2
 
 
@@ -166,12 +183,23 @@ def _canon(r15, thr, adj):
     return length, a
 
 
-def decode_stamp_reference(spans, meta, tabs, symtab, kbound, *, ob: int):
-    """Plain PyTorch K1: the same per-unit decode, one token step per
-    iteration, vectorized over units.  Arithmetic is int64 with the span
-    words masked to 32 bits; the bit cursor wraps like the kernel's int32
-    one."""
-    U, S, multiblock, R = _layout(spans, meta, tabs, symtab, kbound)
+def decode_stamp_reference(spans, meta, pool_t, pool_s, ids, kbound, *,
+                           ob: int):
+    """Plain PyTorch K1: each unit takes its own copy of its tables
+    (:func:`unit_tables`) and decodes as :func:`decode_stamp_units`."""
+    _layout(spans, meta, pool_t, pool_s, ids, kbound)
+    return decode_stamp_units(spans, meta, *unit_tables(pool_t, pool_s, ids),
+                              kbound, ob=ob)
+
+
+def decode_stamp_units(spans, meta, tabs, symtab, kbound, *, ob: int):
+    """K1's function on per-unit tables, ``tabs (U, 72|144)`` and ``symtab
+    (U, R|2R)``: one token step per iteration, vectorized over units.
+    Arithmetic is int64 with the span words masked to 32 bits; the bit
+    cursor wraps like the kernel's int32 one."""
+    U, S = spans.shape
+    multiblock = meta.shape[1] == 4
+    R = symtab.shape[1] // 2 if multiblock else symtab.shape[1]
     dev = spans.device
     sp = spans.long() & 0xFFFFFFFF
     m = meta.long()

@@ -34,35 +34,56 @@ def cuda():
 
 
 def _stream(kind):
+    """``(data, zlib stream, body to decode)``; ``corrupt`` decodes a body
+    with bits flipped in its dynamic block under the intact body's index."""
     rng = np.random.default_rng(2)
-    if kind == "literal":
+    if kind in ("literal", "corrupt"):
         y = (np.sin(np.arange(40_000) / 9.0) * 50 + 128).astype(np.int64)
         data = np.clip(y + rng.integers(-6, 7, y.size), 0, 255).astype(
             np.uint8).tobytes()
-        return data, zlib.compress(data, 6)
+        stream = zlib.compress(data, 6)
+        body = bytearray(stream[2:-4])
+        if kind == "corrupt":
+            for at in range(len(body) // 3, len(body) // 3 + 300):
+                body[at] ^= 0xA5
+        return data, stream, bytes(body)
     if kind == "stored":
         data = rng.integers(0, 256, 90_000, dtype=np.uint8).tobytes()
-        return data, zlib.compress(data, 0)
-    data = (rng.integers(0, 8, 150_000) * 31 % 251).astype(
-        np.uint8).tobytes()
-    return data, zlib.compress(data, 6)      # multiblock (stdlib blocks)
+        stream = zlib.compress(data, 0)
+    elif kind == "fifteen_bit":
+        # Fibonacci symbol counts, Huffman-only: 15-bit literal codes
+        f = [1, 2]
+        while len(f) < 20:
+            f.append(f[-1] + f[-2])
+        syms = np.repeat((np.arange(20) * 37 + 5) % 256, f)
+        rng.shuffle(syms)
+        data = syms.astype(np.uint8).tobytes()
+        co = zlib.compressobj(9, zlib.DEFLATED, 15, 9, zlib.Z_HUFFMAN_ONLY)
+        stream = co.compress(data) + co.flush()
+    else:
+        data = (rng.integers(0, 8, 150_000) * 31 % 251).astype(
+            np.uint8).tobytes()
+        stream = zlib.compress(data, 6)      # multiblock (stdlib blocks)
+    return data, stream, stream[2:-4]
 
 
 @pytest.mark.parametrize("kind,ob", [("literal", 256), ("literal", 1024),
-                                     ("stored", 256), ("multiblock", 256)])
+                                     ("stored", 256), ("multiblock", 256),
+                                     ("corrupt", 256), ("fifteen_bit", 256)])
 def test_decode_stamp_kernel_matches_plain(cuda, kind, ob):
-    data, stream = _stream(kind)
+    data, stream, body = _stream(kind)
     ix = build_index(stream[2:-4], len(data), ob)
-    prep = CheckpointInflator(cuda).prepare([stream[2:-4]] * 3, [ix] * 3)
-    args = (prep["spans"], prep["meta"], prep["tabs"], prep["symtab"],
-            prep["kbound"])
+    prep = CheckpointInflator(cuda).prepare([body] * 3, [ix] * 3)
+    args = (prep["spans"], prep["meta"], prep["pool_t"], prep["pool_s"],
+            prep["ids"], prep["kbound"])
     got = decode_stamp_cuda(*args, ob=ob)
     torch.cuda.synchronize()
     want = decode_stamp_reference(*args, ob=ob)
-    owned = torch.arange(ob, device=cuda) < prep["meta"][:, 2:3]
-    assert torch.equal(got[0][owned], want[0][owned])
-    for g, w in zip(got[1:], want[1:]):
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert bool(got[1].any()) == (kind == "corrupt")
+    if kind == "corrupt":
+        return
     out, adler = CheckpointInflator(cuda).run([stream[2:-4]], [ix])
     assert out[0].cpu().numpy().tobytes() == data
     assert int(adler[0]) == zlib.adler32(data)
@@ -216,12 +237,32 @@ def test_dp_parse_and_emit_kernels_match_plain(cuda):
     rng = np.random.default_rng(5)
     tabs = [torch.from_numpy(rng.integers(6, 60, (2, w)).astype(np.int32)
                              ).to(cuda) for w in (256, 256, 32)]
-    args = (p["dbuf"], p["clen"], cand, *tabs)
-    got = tdo.optimal_parse_cuda(*args, tpi=1)
-    torch.cuda.synchronize()
-    want = tdo.optimal_parse_reference(*args, tpi=1)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    # costs up to about 2^17 per edge, and the level's own size
+    for scale in (2000, 1):
+        args = (p["dbuf"], p["clen"], cand, *[t * scale for t in tabs])
+        got = tdo.optimal_parse_cuda(*args, tpi=1)
+        torch.cuda.synchronize()
+        want = tdo.optimal_parse_reference(*args, tpi=1)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    # entries that could wrap an int32 cost are refused
+    for big in (tdo.DP_COST_CAP, -1):
+        bad = [t.clone() for t in tabs]
+        bad[0][1, 7] = big
+        with pytest.raises(ValueError, match="cost table"):
+            tdo.optimal_parse_cuda(p["dbuf"], p["clen"], cand, *bad, tpi=1)
+    # built to tie: zeros (candidates d = 1 and 2) and a period-2 pattern
+    # (d = 2 and 4) cost the same at every length under generic tables
+    for data in (bytes(9_000), bytes([0x21, 0x7E]) * 4_500):
+        q = tdo._batch_inputs([data, data], 4, 200, cuda)
+        qc = tdo.menu_candidates_cuda(q["dists2"], q["decades2"], q["dbuf"],
+                                      q["nvec"], dmax=q["dmax"],
+                                      stride=q["stride"])
+        qargs = (q["dbuf"], q["clen"], qc, *tdo._initial_tables(q, 9)[:3])
+        tie = tdo.optimal_parse_cuda(*qargs, tpi=1)
+        torch.cuda.synchronize()
+        for g, w in zip(tie, tdo.optimal_parse_reference(*qargs, tpi=1)):
+            assert torch.equal(g, w)
     terms, _, hist = got
     etabs = torch.from_numpy(tdo._host_trees(
         hist.cpu().numpy().astype(np.int64))[1]).to(cuda)

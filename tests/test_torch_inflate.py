@@ -21,7 +21,8 @@ from swift_png_tpu_torch._host.lz77.errors import DecompressionError
 from swift_png_tpu_torch._host.lz77.index import build_index
 from swift_png_tpu_torch.ops.inflate_checkpoint import (
     CheckpointInflator, expand_matches, inflate_indexed_stamp)
-from swift_png_tpu_torch.ops.inflate_stamp import decode_stamp_reference
+from swift_png_tpu_torch.ops.inflate_stamp import (
+    decode_stamp_reference, unit_tables)
 
 OB = 256
 N = 16384   # every stream inflates to N bytes, so any of them batch together
@@ -78,12 +79,15 @@ def prepared():
         if batch not in cache:
             _, jix, _, jp, tp = _prepare(
                 [STREAMS[n][1][2:-4] for n in BATCHES[batch]])
-            stamp = decode_stamp_reference(
-                tp["spans"], tp["meta"], tp["tabs"], tp["symtab"],
-                tp["kbound"], ob=OB)
+            stamp = decode_stamp_reference(*_k1_args(tp), ob=OB)
             cache[batch] = (jix, jp, tp, stamp, _jax_stamp(jp))
         return cache[batch]
     return get
+
+
+def _k1_args(tprep):
+    return (tprep["spans"], tprep["meta"], tprep["pool_t"], tprep["pool_s"],
+            tprep["ids"], tprep["kbound"])
 
 
 def _jax_stamp(jprep):
@@ -125,10 +129,12 @@ def test_prepare_matches_jax_after_untransposing(batch, prepared):
     meta = np.asarray(jp["meta"])
     np.testing.assert_array_equal(tp["meta"].numpy(),
                                   meta.reshape(meta.shape[0], -1).T[:U])
-    for key in ("tabs", "symtab"):
+    # the pool indexed by the unit ids gives JAX's per-unit tables
+    per_unit = unit_tables(tp["pool_t"], tp["pool_s"], tp["ids"])
+    for key, got in zip(("tabs", "symtab"), per_unit):
         ref = np.asarray(jp[key])
         ref = ref.transpose(0, 2, 3, 1).reshape(-1, ref.shape[1])
-        np.testing.assert_array_equal(tp[key].numpy(), ref[:U], key)
+        np.testing.assert_array_equal(got.numpy(), ref[:U], key)
     np.testing.assert_array_equal(
         tp["kbound"].numpy(), np.concatenate([ix.n_tokens for ix in jix]))
     if jp["has_stored"]:
@@ -200,6 +206,98 @@ def test_corrupt_body_flags_the_same_streams():
     with pytest.raises(DecompressionError) as terr:
         CheckpointInflator("cpu").run(bodies, tix)
     assert terr.value.case == jerr.value.case == "invalidHuffmanTable"
+
+
+@pytest.mark.parametrize("case", ["mixed", "corrupt"])
+def test_pool_and_ids_stamp_equals_per_unit_tables(case, prepared):
+    # the plain K1 on the pool and ids against the Pallas kernel on JAX's
+    # per-unit table copies.  On a corrupt body a unit stops at its own
+    # token bound where the TPU kernel runs its tile's, so the port may also
+    # flag a unit as short that the TPU kernel lets run on: the port flags
+    # every unit the kernel flags, with its bits, and the same streams.
+    if case == "mixed":
+        _, jp, tp, got, want = prepared("mixed")
+    else:
+        good = [STREAMS[n][1][2:-4] for n in BATCHES["mixed"]]
+        bad = bytearray(good[2])           # the multiblock stream's body
+        for at in range(len(bad) // 2, len(bad) // 2 + 300):
+            bad[at] ^= 0x3C
+        _, _, _, jp, tp = _prepare(good[:2] + [bytes(bad)] + good[3:], good)
+        got = decode_stamp_reference(*_k1_args(tp), ob=OB)
+        want = _jax_stamp(jp)
+    U = tp["meta"].shape[0]
+    attr, flag, s1, s2 = (g.numpy() for g in got)
+    jattr, jflag, js1, js2 = (w[:U] for w in want)
+    B = len(BATCHES["mixed"])
+    np.testing.assert_array_equal(flag[jflag != 0], jflag[jflag != 0])
+    np.testing.assert_array_equal(flag.reshape(B, -1).any(1),
+                                  jflag.reshape(B, -1).any(1))
+    if case == "mixed":
+        np.testing.assert_array_equal(flag, jflag)
+    ok = (flag == 0) & (jflag == 0)
+    np.testing.assert_array_equal(s1[ok], js1[ok])
+    np.testing.assert_array_equal(s2[ok], js2[ok])
+    owned = (np.arange(OB)[None, :] < tp["meta"].numpy()[:, 2:3]) & ok[:, None]
+    np.testing.assert_array_equal(attr[owned], jattr[owned])
+    flagged = flag.reshape(B, -1).any(1)
+    assert flagged.tolist() == ([False] * 4 if case == "mixed"
+                                else [False, False, True, False])
+
+
+@pytest.mark.parametrize("bad_id", [-1, "P"])
+def test_decode_stamp_rejects_ids_outside_the_pool(bad_id, prepared):
+    tp = prepared("mixed")[2]
+    ids = tp["ids"].clone()
+    ids[5, 1] = tp["pool_t"].shape[0] if bad_id == "P" else bad_id
+    args = list(_k1_args(tp))
+    args[4] = ids
+    with pytest.raises(ValueError, match="ids must index"):
+        decode_stamp_reference(*args, ob=OB)
+
+
+def _fifteen_bit_stream():
+    """Fibonacci symbol counts, shuffled, Huffman-only at level 9: the
+    rarest literals take 15-bit codes."""
+    f = [1, 2]
+    while len(f) < 18:
+        f.append(f[-1] + f[-2])
+    syms = np.repeat((np.arange(18) * 37 + 5) % 256, f)
+    np.random.default_rng(7).shuffle(syms)
+    data = syms.astype(np.uint8).tobytes()
+    co = zlib.compressobj(9, zlib.DEFLATED, 15, 9, zlib.Z_HUFFMAN_ONLY)
+    return data, co.compress(data) + co.flush()
+
+
+def test_decode_stamp_fifteen_bit_codes_match_pallas_kernel():
+    data, stream = _fifteen_bit_stream()
+    body = stream[2:-4]
+    n = len(data)
+    jix = _build_index_host(body, n, OB)
+    tix = build_index(body, n, OB)
+    assert int(tix.lit_lengths.max()) == 15
+    jp = JaxInflator(ob=OB, backend="pallas").prepare([body], [jix])
+    tp = CheckpointInflator("cpu").prepare([body], [tix])
+    attr, flag, s1, s2 = decode_stamp_reference(*_k1_args(tp), ob=OB)
+    jattr, jflag, js1, js2 = _jax_stamp(jp)
+    U = tix.units
+    owned = np.arange(OB)[None, :] < tp["meta"].numpy()[:, 2:3]
+    np.testing.assert_array_equal(attr.numpy()[owned], jattr[:U][owned])
+    for g, w in ((flag, jflag), (s1, js1), (s2, js2)):
+        np.testing.assert_array_equal(g.numpy(), w[:U])
+    assert not flag.numpy().any()
+    lit = attr.numpy()[owned]
+    assert bytes((-lit - 1).astype(np.uint8)) == data
+
+
+def test_prepare_keeps_one_table_row_per_block(prepared):
+    jix, _, tp, _, _ = prepared("mixed")
+    P = sum(ix.n_blocks for ix in jix)
+    assert tuple(tp["pool_t"].shape) == (P, 72)
+    assert tp["pool_s"].shape[0] == P
+    assert tp["ids"].dtype == torch.int32
+    assert tuple(tp["ids"].shape) == (len(jix) * tp["Ui"], 2)
+    assert 0 <= int(tp["ids"].min()) and int(tp["ids"].max()) < P
+    assert "tabs" not in tp and "symtab" not in tp
 
 
 def test_expand_matches_is_forward_copy():
