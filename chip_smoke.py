@@ -24,8 +24,10 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
 
 Beside the main batches, K1 is held against its plain version on a stored
 stream, a level-1 RLE stream, a stream with 15-bit literal codes and a
-corrupt body (flags compared), and K5 on inputs built to tie and on cost
-tables × 2,000.  K5 is timed on the photographic and the smooth
+corrupt body (flags compared), K3 on odd pitches, one pixel group,
+heights 1 to 1,100 and base pointers off 16-byte alignment (the
+``k3_launch`` line gives its launch shape), and K5 on inputs built to tie
+and on cost tables × 2,000.  K5 is timed on the photographic and the smooth
 batch; the ``warps_per_sm`` line gives K1's and K5's resident warps.
 
 Each path checks its output against the source and zlib's Adler-32, and
@@ -761,6 +763,61 @@ def k1_extra_streams(rng) -> dict:
     return out
 
 
+# K3's shapes beyond the main batch: pitches that are not multiples of 4
+# or 16, one pixel group, warp edges, a second 1,024-row chunk, and base
+# pointers 1..15 bytes off 16-byte alignment
+# (delays 5 and 7 come from no PNG but are in the kernel's contract)
+K3_ODD_PITCH = {1: 97, 2: 98, 3: 99, 4: 100, 5: 105, 6: 102, 7: 98,
+                8: 104}
+
+
+def k3_odd_cases(dev) -> list:
+    """``(name, delay, filtered)`` on the card, each with every filter type
+    (0..4 and one of 5..255) on at least one row: six images when there is
+    one row.  The filtered bytes are a view of a flat buffer at the offset."""
+    rng = np.random.default_rng(3)
+    cases = []
+    for delay, pitch in K3_ODD_PITCH.items():
+        for hh, p in ((1, pitch), (31, pitch), (33, pitch), (1100, pitch),
+                      (33, delay)):
+            b = 6 if hh == 1 else 2
+            f = rng.integers(0, 256, (b, hh, 1 + p), dtype=np.uint8)
+            kind = (np.arange(b)[:, None] + np.arange(hh)[None, :]) % 6
+            f[:, :, 0] = np.where(kind == 5, rng.integers(5, 256, kind.shape),
+                                  kind)
+            off = 1 + len(cases) % 15
+            flat = torch.zeros(f.size + 16, dtype=torch.uint8, device=dev)
+            t = flat[off:off + f.size].view(f.shape)
+            t.copy_(torch.from_numpy(f))
+            name = "one_group" if p == delay else f"pitch{p}_h{hh}"
+            cases.append((name, delay, t))
+    return cases
+
+
+def k3_launch(kernel, h: int, delay: int) -> dict:
+    """K3's launch shape for images of ``h`` rows at ``delay`` (threads and
+    dynamic shared memory per block, resident warps per SM from CUDA's
+    occupancy calculator) and the registers of that delay's kernel."""
+    import ctypes
+
+    fn = kernel._lib.spt_defilter_occupancy
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = fn(h, delay, *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        fail(f"K3 occupancy query failed ({rc})")
+    regs, entry = None, ""
+    for ln in kernel.ptxas.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln
+        elif "registers" in ln and f"ILi{delay}E" in entry:
+            regs = ln.split("Used ")[1].split(" registers")[0]
+    return dict(threads=vals[0].value, dynamic_smem_bytes=vals[1].value,
+                warps_per_sm=vals[2].value,
+                registers=None if regs is None else int(regs))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -894,14 +951,22 @@ def main() -> int:
         if err:
             fail(f"K3 differs from its plain version at delay {delay}")
     main_f = torch.from_numpy(np.stack([filtered[i] for i in order])).to(dev)
-    got = defilter_cuda(main_f, 4)
-    torch.cuda.synchronize()
-    err = max_abs([(got, defilter_reference(main_f, 4))])
-    k3_err = max(k3_err, err)
-    emit(phase="k3_check", delay=4, shape=list(main_f.shape),
-         max_abs_err=err)
-    if err:
-        fail("K3 differs from its plain version on the main batch")
+    flat = torch.zeros(main_f.numel() + 16, dtype=torch.uint8, device=dev)
+    main_odd = flat[1:1 + main_f.numel()].view(main_f.shape)
+    main_odd.copy_(main_f)
+    for name, delay, f in (k3_odd_cases(dev)
+                           + [("main", 4, main_f), ("main_offset1", 4,
+                                                    main_odd)]):
+        got = defilter_cuda(f, delay)
+        torch.cuda.synchronize()
+        err = max_abs([(got, defilter_reference(f, delay))])
+        k3_err = max(k3_err, err)
+        emit(phase="k3_check", case=name, delay=delay, shape=list(f.shape),
+             base_offset=f.data_ptr() % 16, max_abs_err=err)
+        if err:
+            fail(f"K3 differs from its plain version on {name} at delay "
+                 f"{delay}")
+    emit(phase="k3_launch", **k3_launch(kernels["defilter"], H, 4))
     k3_ms = cuda_ms(lambda: defilter_cuda(main_f, 4), 10)
     k3_plain_ms = cuda_ms(lambda: defilter_reference(main_f, 4), 1)
     k3_bytes = main_f.numel() * 2 - B * H

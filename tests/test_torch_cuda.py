@@ -89,16 +89,34 @@ def test_decode_stamp_kernel_matches_plain(cuda, kind, ob):
     assert int(adler[0]) == zlib.adler32(data)
 
 
-@pytest.mark.parametrize("delay", [1, 2, 3, 4, 6, 8])
-@pytest.mark.parametrize("height", [5, 1100])
-def test_defilter_kernel_matches_plain(cuda, delay, height):
+# delays 5 and 7 come from no PNG but are in the kernel's contract
+ODD_PITCH = {1: 97, 2: 98, 3: 99, 4: 100, 5: 105, 6: 102, 7: 98, 8: 104}
+
+
+@pytest.mark.parametrize("delay", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("height,pitch,offset", [
+    (5, "wide", 0), (1100, "wide", 0),
+    # what K3's memory path branches on: pitches that are not multiples of
+    # 4 or 16, one pixel group, warp edges, a second row chunk, a base
+    # pointer off 16-byte alignment
+    (1, "odd", 3), (31, "odd", 5), (33, "odd", 1), (1100, "odd", 15),
+    (33, "one_group", 7)])
+def test_defilter_kernel_matches_plain(cuda, delay, height, pitch, offset):
+    pitch = {"wide": 12 * delay, "odd": ODD_PITCH[delay],
+             "one_group": delay}[pitch]
+    B = 6 if height == 1 else 2
     rng = np.random.default_rng(delay)
-    f = rng.integers(0, 256, (2, height, 1 + 12 * delay), dtype=np.uint8)
-    f[:, :, 0] = rng.integers(0, 8, (2, height))
-    f = torch.from_numpy(f).to(cuda)
-    got = defilter_cuda(f, delay)
+    f = rng.integers(0, 256, (B, height, 1 + pitch), dtype=np.uint8)
+    # every filter type (0..4 and one of 5..255) on at least one row
+    kind = (np.arange(B)[:, None] + np.arange(height)[None, :]) % 6
+    f[:, :, 0] = np.where(kind == 5, rng.integers(5, 256, kind.shape), kind)
+    flat = torch.zeros(f.size + 16, dtype=torch.uint8, device=cuda)
+    f_dev = flat[offset:offset + f.size].view(f.shape)
+    f_dev.copy_(torch.from_numpy(f))
+    assert f_dev.data_ptr() % 16 == offset
+    got = defilter_cuda(f_dev, delay)
     torch.cuda.synchronize()
-    assert torch.equal(got, defilter_reference(f, delay))
+    assert torch.equal(got, defilter_reference(f_dev, delay))
 
 
 def _png(W, H, stream, index_blob):

@@ -53,3 +53,42 @@ def test_defilter_rejects_bad_delay():
         defilter_batch(f, 4)      # 10 % 4 != 0
     with pytest.raises(ValueError):
         defilter_batch(torch.zeros((1, 2, 1 + 18), dtype=torch.uint8), 9)
+
+
+# Shapes that K3's memory path branches on: pitches that are not multiples
+# of 4 or 16, one pixel group, heights at a warp's edges and past one
+# 1,024-row chunk, a base pointer off 16-byte alignment.
+ODD_PITCH = {1: 97, 2: 98, 3: 99, 4: 100, 6: 102, 8: 104}
+ODD_SHAPES = ([(d, ODD_PITCH[d], h) for d in ODD_PITCH
+               for h in (1, 31, 33, 1100)]
+              + [(d, d, 33) for d in ODD_PITCH])
+
+
+def _odd_case(delay, pitch, height, seed=11):
+    """Filtered scanlines at a base offset of 1..15 bytes, every filter type
+    (0..4 and one of 5..255) on at least one row: six images when there is
+    one row."""
+    B = 6 if height == 1 else 2
+    rng = np.random.default_rng(seed + 7 * delay + height)
+    f = rng.integers(0, 256, (B, height, 1 + pitch), dtype=np.uint8)
+    kind = (np.arange(B)[:, None] + np.arange(height)[None, :]) % 6
+    f[:, :, 0] = np.where(kind == 5, rng.integers(5, 256, kind.shape), kind)
+    off = 1 + (delay + height) % 15
+    flat = torch.zeros(f.size + 16, dtype=torch.uint8)
+    t = flat[off:off + f.size].view(f.shape)
+    t.copy_(torch.from_numpy(f))
+    return f, t
+
+
+@pytest.mark.parametrize("delay,pitch,height", ODD_SHAPES)
+def test_defilter_reference_odd_shapes(delay, pitch, height):
+    f, t = _odd_case(delay, pitch, height)
+    got = defilter_batch(t, delay)
+    assert got.shape == (f.shape[0], height, pitch)
+    want = np.asarray(jax_defilter_batch(jnp.asarray(f), delay))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if height == 1 or pitch == delay:      # the smallest cases
+        for b in range(f.shape[0]):
+            want = np.asarray(defilter_pallas(jnp.asarray(f[b]), delay,
+                                              interpret=True))
+            np.testing.assert_array_equal(got[b].numpy(), want)
