@@ -24,11 +24,17 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
 
 Beside the main batches, K1 is held against its plain version on a stored
 stream, a level-1 RLE stream, a stream with 15-bit literal codes and a
-corrupt body (flags compared), K3 on odd pitches, one pixel group,
+corrupt body, and on seeded corruptions of batches in each of the TPU
+kernel's three step modes (``k1_corrupt``: flags compared, and ``run`` on
+the card against ``run`` on the CPU), K3 on odd pitches, one pixel group,
 heights 1 to 1,100 and base pointers off 16-byte alignment (the
-``k3_launch`` line gives its launch shape), and K5 on inputs built to tie
-and on cost tables × 2,000.  K5 is timed on the photographic and the smooth
-batch; the ``warps_per_sm`` line gives K1's and K5's resident warps.
+``k3_launch`` line gives its launch shape), K4 on its edge cases
+(``k4_edge_check``: every ``d % 4`` residue, distances up to 32,768, ``n``
+off multiples of 4 and 32, ``d >= n``, runs cut at 258, equal scores,
+``dmax`` 8, 16 and 32, bytes off 16-byte alignment) and K5 on inputs built
+to tie and on cost tables × 2,000.  K4 and K5 are timed on the
+photographic and the smooth batch; the ``warps_per_sm`` line gives K1's,
+K4's and K5's resident warps.
 
 Each path checks its output against the source and zlib's Adler-32, and
 each kernel of a path must have launched while the path ran.  Every phase
@@ -593,6 +599,112 @@ def k5_edge_checks(dev) -> int:
     return worst
 
 
+K4_STRIDE = 128 * 1024    # one TPU tile of positions per image
+
+
+def k4_copies(n: int, menu: list, seed: int) -> np.ndarray:
+    """``n`` bytes built of random bytes and copies from the menu's
+    distances (3 to 300 bytes, so runs reach the 258 cap)."""
+    rng = np.random.default_rng(seed)
+    buf = bytearray(rng.integers(0, 256, 16, dtype=np.uint8).tobytes())
+    while len(buf) < n:
+        d = int(menu[rng.integers(0, len(menu))])
+        ln = int(rng.integers(3, 301))
+        if d <= len(buf):
+            for _ in range(ln):
+                buf.append(buf[len(buf) - d])
+        buf += rng.integers(0, 256, int(rng.integers(1, 6)),
+                            dtype=np.uint8).tobytes()
+    return np.frombuffer(bytes(buf[:n]), np.uint8)
+
+
+def k4_edge_cases() -> dict:
+    """K4's edge cases: ``{name: (data (2·K4_STRIDE,) u8, nvec (2,), dists
+    (2, dmax), costs (2, dmax))}`` int32 numpy arrays.  Every ``d % 4``
+    residue and distances up to 32,768 (above 8 KB read from global
+    memory), ``n`` not a multiple of 4 or 32 and an image that ends inside
+    its last window, ``d >= n``, all-zero bytes (runs cut at 258), equal
+    scores across slots (the first slot wins), ``dmax`` of 8, 16 and 32,
+    costs outside the kernel's key range, and image 0 at the buffer's first
+    byte with distances past its first positions."""
+    from swift_png_tpu_torch._host.lz77.constants import DISTANCE_DECADE
+
+    S = K4_STRIDE
+
+    def case(images, menus, dmax, costs=None):
+        data = np.zeros(2 * S, np.uint8)
+        for i, img in enumerate(images):
+            data[i * S:i * S + img.size] = img
+        dv = np.zeros((2, dmax), np.int32)
+        cv = np.zeros((2, dmax), np.int32)
+        for i, m in enumerate(menus):
+            dv[i, :len(m)] = m
+            cv[i, :len(m)] = ([DISTANCE_DECADE[d] for d in m] if costs is None
+                              else costs[:len(m)])
+        return (data, np.asarray([img.size for img in images], np.int32),
+                dv, cv)
+
+    far = [1, 2, 3, 5, 6, 7, 33, 255, 1026, 4097, 8191, 16383, 16384,
+           16385, 20001, 32768]
+    small = [1, 2, 3, 4, 6, 8, 12, 16]
+    wide = list(range(1, 25)) + [258, 1000, 2049, 4098, 9000, 16385,
+                                 24577, 32768]
+    return {
+        "residues_far_d": case([k4_copies(100_003, far, 1),
+                                k4_copies(S - 3, far, 2)], [far, far], 16),
+        "d_at_least_n": case([k4_copies(5_001, small, 3),
+                              k4_copies(70_017, far, 4)],
+                             [small + [5_001, 7_000], far], 16),
+        "all_zero": case([np.zeros(S - 1, np.uint8),
+                          np.zeros(40_001, np.uint8)], [small, far], 16),
+        "equal_scores": case([np.full(60_002, 7, np.uint8),
+                              np.tile(np.arange(4, dtype=np.uint8), 9_000)],
+                             [small, small], 8, costs=[5] * 8),
+        "dmax8": case([k4_copies(33_333, small, 5),
+                       k4_copies(S, small, 6)], [small, small[:5]], 8),
+        "dmax32": case([k4_copies(90_001, wide, 7),
+                        k4_copies(S - 31, wide, 8)], [wide, wide[::2]], 32),
+        # costs outside [0, 2^16), some near the int32 ends: the kernel's
+        # general top 2, with scores that wrap as the plain version's do
+        "costs_outside_keys": case(
+            [k4_copies(50_001, small, 9), np.zeros(S, np.uint8)],
+            [small, small], 8,
+            costs=[-7, 65_536, 2**31 - 1, -2**31, 200, 0, 64, 130]),
+    }
+
+
+def k4_edge_checks(dev) -> int:
+    """K4 against its plain version on :func:`k4_edge_cases`, each case's
+    bytes at another offset from 16-byte alignment.  Returns the worst
+    error."""
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+
+    worst = 0
+    for k, (name, (data, nvec, dv, cv)) in enumerate(k4_edge_cases().items()):
+        off = 1 + 2 * k
+        flat = torch.zeros(data.size + 32, dtype=torch.uint8, device=dev)
+        d = flat[off:off + data.size]
+        d.copy_(torch.from_numpy(data))
+        args = [torch.from_numpy(x).to(dev) for x in (dv, cv)]
+        nv = torch.from_numpy(nvec).to(dev)
+        kw = dict(dmax=dv.shape[1], stride=K4_STRIDE)
+        got = tdo.menu_candidates_cuda(*args, d, nv, **kw)
+        torch.cuda.synchronize()
+        want = tdo.menu_candidates_reference(*args, d, nv, **kw)
+        err = max_abs([(got, want)])
+        worst = max(worst, err)
+        emit(phase="k4_edge_check", case=name, dmax=dv.shape[1],
+             n=nvec.tolist(), max_d=int(dv.max()),
+             base_offset=d.data_ptr() % 16,
+             candidates=int(((want & 0x1FF) >= 3).sum()), max_abs_err=err)
+        if err:
+            bad = int((got != want).any(0).nonzero()[0, 0])
+            fail(f"K4 differs from its plain version on {name} at position "
+                 f"{bad}: {got[:, bad].tolist()} against "
+                 f"{want[:, bad].tolist()}")
+    return worst
+
+
 def idat_streams(pngs: list[bytes]) -> list[bytes]:
     """Each PNG's concatenated IDAT payload, read with the port's lexer;
     fails unless every PNG carries an ``spIx`` chunk."""
@@ -763,6 +875,135 @@ def k1_extra_streams(rng) -> dict:
     return out
 
 
+# ---- K1 on corrupt bodies: the TPU kernel's step budget ---------------------
+
+K1C_N = 16384           # bytes each stream of the corruption batches inflates to
+
+
+def k1_corrupt_streams() -> dict:
+    """``{name: (data, zlib stream)}``, each of ``K1C_N`` bytes: a noisy
+    sine (``single``), long runs crossing units (``crossing``), a stream of
+    four dynamic blocks (``multiblock``), a stored chain with mid-unit
+    header gaps (``stored``), Huffman-only literals (``huffman``) and
+    back-to-back short copies at level 1 (``dense``)."""
+    n = K1C_N
+    rng = np.random.default_rng(0)
+    y = (np.sin(np.arange(n) / 9.0) * 50 + 128).astype(np.int64)
+    single = np.clip(y + rng.integers(-6, 7, n), 0, 255).astype(
+        np.uint8).tobytes()
+    crossing = ((b"x" * 700 + b"yz" * 700 + b"x" * 700) * 8)[:n]
+    multi = (np.random.default_rng(3).integers(0, 8, n) * 31 % 251).astype(
+        np.uint8).tobytes()
+    co = zlib.compressobj(4)
+    mb = b"".join(co.compress(multi[i:i + 4096]) + co.flush(zlib.Z_BLOCK)
+                  for i in range(0, n, 4096)) + co.flush()
+    stored = np.random.default_rng(4).integers(0, 256, n,
+                                               dtype=np.uint8).tobytes()
+    co = zlib.compressobj(0)
+    chain = b"".join(co.compress(stored[i:i + 3000])
+                     + co.flush(zlib.Z_FULL_FLUSH) for i in range(0, n, 3000))
+    huff = np.random.default_rng(5).integers(0, 40, n).astype(
+        np.uint8).tobytes()
+    co_h = zlib.compressobj(9, zlib.DEFLATED, 15, 9, zlib.Z_HUFFMAN_ONLY)
+    rng = np.random.default_rng(21)
+    dense = bytearray(rng.integers(0, 256, 8, dtype=np.uint8).tobytes())
+    while len(dense) < n:
+        k = int(rng.integers(6, 12))
+        back = int(rng.integers(min(k, len(dense)),
+                                min(len(dense), 4096) + 1))
+        dense += dense[len(dense) - back:len(dense) - back + k]
+    dense = bytes(dense[:n])
+    return {"single": (single, zlib.compress(single, 6)),
+            "crossing": (crossing, zlib.compress(crossing, 6)),
+            "multiblock": (multi, mb),
+            "stored": (stored, chain + co.flush()),
+            "huffman": (huff, co_h.compress(huff) + co_h.flush()),
+            "dense": (dense, zlib.compress(dense, 1))}
+
+
+# batches whose tiles run each step mode of the TPU kernel: (streams,
+# streams the corruption picks from, the mode, seeds)
+K1_CORRUPT = {"mixed": (("single", "crossing", "multiblock", "stored"), 3, 2,
+                        range(40)),
+              "literal": (("huffman", "stored"), 1, 1, range(8)),
+              "dense": (("dense", "crossing"), 2, 0, range(8))}
+
+
+def corrupt_bodies(good: list, n_pick: int, seed: int) -> list:
+    """``good`` with one of its first ``n_pick`` bodies' bytes ``[at, at +
+    ln)`` XORed: with 0x3C on every third seed, else a random byte each."""
+    rng = np.random.default_rng(100 + seed)
+    k = int(rng.integers(0, n_pick))
+    body = bytearray(good[k])
+    at = int(rng.integers(2, len(body) - 4))
+    ln = int(rng.integers(1, 64))
+    for j in range(at, min(at + ln, len(body))):
+        body[j] ^= 0x3C if seed % 3 == 0 else int(rng.integers(1, 256))
+    return good[:k] + [bytes(body)] + good[k + 1:]
+
+
+def run_outcome(eng, bodies: list, indexes: list):
+    """The error case ``run`` raises, or its bytes and Adler-32."""
+    from swift_png_tpu_torch._host.lz77.errors import DecompressionError
+
+    try:
+        out, adler = eng.run(bodies, indexes)
+    except DecompressionError as e:
+        return e.case
+    return out.cpu().numpy().tobytes(), [int(a) for a in adler]
+
+
+def k1_corrupt_checks(dev) -> int:
+    """K1 against its plain version on seeded corruptions of batches in
+    each step mode (every output exact, the tile mode as expected), and
+    ``run`` on the card against ``run`` on the CPU: the same error case,
+    or the same bytes and Adler-32.  Returns K1's worst error."""
+    from swift_png_tpu_torch._host.lz77.index import build_index
+    from swift_png_tpu_torch.ops.inflate_checkpoint import CheckpointInflator
+    from swift_png_tpu_torch.ops.inflate_stamp import (
+        decode_stamp_cuda, decode_stamp_reference)
+
+    streams = k1_corrupt_streams()
+    eng, host = CheckpointInflator(dev), CheckpointInflator("cpu")
+    worst = 0
+    for batch, (names, n_pick, mode, seeds) in K1_CORRUPT.items():
+        good = [streams[n][1][2:-4] for n in names]
+        indexes = [build_index(b, K1C_N, OB) for b in good]
+        if any(ix is None for ix in indexes):
+            fail(f"k1_corrupt: a {batch} stream did not index")
+        t0 = time.perf_counter()
+        err, flagged, raised = 0, 0, 0
+        for seed in seeds:
+            bodies = corrupt_bodies(good, n_pick, seed)
+            prep = eng.prepare(bodies, indexes)
+            if set(prep["kbound"][:, 1].tolist()) != {mode}:
+                fail(f"k1_corrupt: {batch} is not in mode {mode}")
+            args = k1_args(prep)
+            got = decode_stamp_cuda(*args, ob=OB)
+            torch.cuda.synchronize()
+            e = max_abs(zip(got, decode_stamp_reference(*args, ob=OB)))
+            err = max(err, e)
+            flagged += int(got[1].count_nonzero())
+            want = run_outcome(host, bodies, indexes)
+            if run_outcome(eng, bodies, indexes) != want:
+                fail(f"k1_corrupt: run on the card and on the CPU differ on "
+                     f"{batch} seed {seed}")
+            raised += isinstance(want, str)
+            if e:
+                fail(f"K1 differs from its plain version on {batch} seed "
+                     f"{seed}")
+        emit(phase="k1_corrupt", batch=batch, mode=mode, cases=len(seeds),
+             units=int(prep["spans"].shape[0]), flagged_units=flagged,
+             runs_raised=raised, max_abs_err=err,
+             seconds=time.perf_counter() - t0)
+        if not flagged or not raised or raised == len(seeds):
+            fail(f"k1_corrupt: {batch} has {flagged} flagged units and "
+                 f"{raised} of {len(seeds)} runs raised: both outcomes are "
+                 f"wanted")
+        worst = max(worst, err)
+    return worst
+
+
 # K3's shapes beyond the main batch: pitches that are not multiples of 4
 # or 16, one pixel group, warp edges, a second 1,024-row chunk, and base
 # pointers 1..15 bytes off 16-byte alignment
@@ -909,10 +1150,13 @@ def main() -> int:
              flags=int(got[1].count_nonzero()))
         if err:
             fail(f"K1 differs from its plain version on {name}")
-        if (name == "corrupt") != bool(got[1].count_nonzero()):
+        # a corrupt unit may decode on to its tile's budget and cover its
+        # bytes (k1_corrupt_checks holds flagged cases)
+        if name != "corrupt" and got[1].count_nonzero():
             fail(f"K1 flags on {name}: {int(got[1].count_nonzero())}")
         if name == "fifteen_bit" and k1_max_code_bits(p) != 15:
             fail("the fifteen_bit stream has no 15-bit literal code")
+    k1_err = max(k1_err, k1_corrupt_checks(dev))
     args = k1_args(prep)
     k1_ms = cuda_ms(lambda: decode_stamp_cuda(*args, ob=OB), 10)
     k1_plain_ms = cuda_ms(lambda: decode_stamp_reference(*args,
@@ -924,7 +1168,7 @@ def main() -> int:
                 + U * OB * 4 + U * (4 + 8 + 8))
     # the tokens this run's units decode, by kind: a unit decodes at most
     # one boundary EOB, and only where it has a jump
-    tokens = int(prep["kbound"].long().sum())
+    tokens = sum(int(indexes[i].n_tokens.sum()) for i in order)
     eobs = (int((prep["meta"][:, 3] > 0).sum()) if prep["multiblock"]
             else 0)
     matches = tokens - literals - eobs
@@ -1045,6 +1289,7 @@ def main() -> int:
                                                               256))
               for config in ("photographic", "smooth")]
     edge_err = k5_edge_checks(dev)
+    k4_edge_err = k4_edge_checks(dev)
     enc_launches = encode_path(dev, "photographic")
     encode_path(dev, "smooth")
     enc = encode_kernel_checks(dev, "photographic",
@@ -1057,13 +1302,18 @@ def main() -> int:
     enc_err = {k: max(c[f"{k}_max_abs_err"] for c in checks)
                for k in ("k4", "k5", "k6")}
     enc_err["k5"] = max(enc_err["k5"], edge_err)
+    enc_err["k4"] = max(enc_err["k4"], k4_edge_err)
     b_smooth = bound(enc_smooth["k5_bytes"], enc_smooth["k5_ops"])
     emit(phase="k5_smooth", ms=enc_smooth["k5_ms"],
          plain_ms=enc_smooth["k5_plain_ms"], bound_ms=b_smooth[0],
          bound_by=b_smooth[1], edges=enc_smooth["k5_edges"])
+    b_smooth4 = bound(enc_smooth["k4_bytes"], enc_smooth["k4_ops"])
+    emit(phase="k4_smooth", ms=enc_smooth["k4_ms"],
+         plain_ms=enc_smooth["k4_plain_ms"], bound_ms=b_smooth4[0],
+         bound_by=b_smooth4[1])
     emit(phase="warps_per_sm",
          **{name: kernels[name].resident_warps()
-            for name in ("decode_stamp", "dp_parse")})
+            for name in ("decode_stamp", "dp_parse", "cand")})
     emit(phase="bounds", k1_tokens=tokens, k1_literals=literals,
          k1_matches=matches, k1_eobs=eobs, k1_bytes=k1_bytes, k1_ops=k1_ops,
          k3_bytes=k3_bytes, k3_ops=k3_ops, k2_records=k2["records"],

@@ -33,8 +33,15 @@
 //   4-byte store per byte.  18 KB per 128-thread block leaves the SM's
 //   resident warps to the registers (the launch bounds ask for 16 at least).
 //
-// The TPU kernel's lane layout, one-hot selects, tile step bounds and tile
-// modes do not carry over: each unit stops at its own bound.
+// The TPU kernel's lane layout and one-hot selects do not carry over; its
+// step budget does.  Each unit gets its 1,024-unit tile's (bound, mode)
+// from the host (kbound, two int32 per unit), and counts steps as the TPU
+// kernel's loops do: mode 0 one token a step; mode 2 one token a step, a
+// literal that follows a literal or a match riding on the same step; mode 1
+// (all-literal tiles) 8 * ((bound + 3) >> 2) literals, any other code bad and
+// no coverage flag.  A valid unit ends at its coverage inside the budget;
+// the budget decides how far a corrupt one runs, so the flags are the TPU
+// kernel's.  Counting costs a compare and two flags per token.
 //
 // Output contract (the torch tail reads it as the JAX tail reads the
 // kernel's): attr (U, ob) int32, flag (U,) int32 (1 bad code, 2 coverage
@@ -171,7 +178,10 @@ __global__ void __launch_bounds__(kThreads, 4) decode_stamp_kernel(
   const int32_t* m = meta + static_cast<size_t>(u) * mrows;
   const int sub0 = m[0], skip = m[1], owned = m[2];
   const int jumpv = multiblock ? m[3] : 0;
-  const int kb = kbound[u];
+  const int kb = kbound[2 * static_cast<size_t>(u)];
+  const int mode = kbound[2 * static_cast<size_t>(u) + 1];
+  const bool lit_only = mode == 1, pair = mode == 2;
+  const int steps = lit_only ? 8 * ((kb + 3) >> 2) : kb;
   const int id_a = ids[static_cast<size_t>(u) * (multiblock ? 2 : 1)];
   const int id_b = multiblock ? ids[static_cast<size_t>(u) * 2 + 1] : id_a;
   __shared__ __align__(16) int32_t stage_s[kThreads * kStage];
@@ -190,7 +200,9 @@ __global__ void __launch_bounds__(kThreads, 4) decode_stamp_kernel(
   // a unit's tokens cover [-skip, cur): a negative skip leaves a head
   for (int p = 0; p < min(cur, ob); ++p) out.put(p, kSentinel);
   bool sw = false;  // switched to the next block's tables
-  for (int k = 0; k < kb && cur < owned; ++k) {
+  int taken = 0;      // steps of the budget taken
+  bool free = false;  // a literal now rides on the step taken (mode 2)
+  while (cur < owned) {
     const uint32_t win = span.window(bitrel);
 
     // literal/length code
@@ -207,6 +219,12 @@ __global__ void __launch_bounds__(kThreads, 4) decode_stamp_kernel(
     const bool is_eob = !lbad && sym == 256;
     const bool is_runtok = !lbad && sym >= 257 && sym <= 285;
 
+    const bool rides = free && is_lit;
+    free = false;
+    if (!rides) {
+      if (taken >= steps) break;
+      ++taken;
+    }
     if (is_lit) {
       if (cur >= 0 && cur < ob) {
         out.put(cur, -(sym + 1));
@@ -218,7 +236,12 @@ __global__ void __launch_bounds__(kThreads, 4) decode_stamp_kernel(
       bitrel = static_cast<int>(static_cast<uint32_t>(bitrel) +
                                 static_cast<uint32_t>(ls));
       cur += 1;
+      free = pair && !rides;
       continue;
+    }
+    if (lit_only) {
+      fl |= 1;
+      break;
     }
     if (is_eob) {
       // boundary EOB: jump over the next block's header, switch tables
@@ -273,8 +296,9 @@ __global__ void __launch_bounds__(kThreads, 4) decode_stamp_kernel(
     bitrel = static_cast<int>(static_cast<uint32_t>(bitrel) +
                               static_cast<uint32_t>(ls + e_run + dls + e_d));
     cur += run;
+    free = pair;
   }
-  if (cur < owned) fl |= 2;
+  if (cur < owned && !lit_only) fl |= 2;
   // the covered bytes end at cur: the rest of the row is uncovered
   for (int p = min(max(cur, 0), ob); p < ob; ++p) out.put(p, kSentinel);
   flag[u] = fl;
@@ -299,7 +323,8 @@ extern "C" int spt_resident_warps(int* warps) {
 
 // Launch K1 on `stream`.  U units of S span words; ob output bytes per unit;
 // pool_t (P, 72) and pool_s (P, R) int32 block tables; ids (U, 1|2) int32
-// pool rows per unit; multiblock selects two ids and 4 meta columns.
+// pool rows per unit; kbound (U, 2) int32 step budget and mode per unit;
+// multiblock selects two ids and 4 meta columns.
 // ob is a multiple of 32 (checkpoint indexes hold multiples of 64).
 extern "C" int spt_decode_stamp(const void* spans, const void* meta,
                                 const void* pool_t, const void* pool_s,

@@ -241,7 +241,9 @@ def menu_candidates_reference(dists2, decades2, data, nvec, *, dmax: int,
             r = r + torch.where(r == step, nxt, 0)
         r = r.clamp(max=258).to(torch.int32)
         R = torch.where(pos[None] >= dv[:, None],
-                        torch.minimum(r, (n - pos).clamp(min=0)[None]), 0)
+                        torch.minimum(r, (n - pos).clamp(min=0)[None]),
+                        0).to(torch.int32)
+        # int32, so a score wraps as the TPU kernel's does
         score = torch.where((R >= 3) & (dv[:, None] > 0),
                             R * 64 - decades2[i][:, None], -1)
         for k in range(KCAND):

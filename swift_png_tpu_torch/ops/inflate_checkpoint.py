@@ -9,9 +9,11 @@ The torch tail then places the literal and stored bytes, checks the flags,
 resolves the back-references and computes the Adler-32 checksum.
 
 Layout is unit-major: row ``u`` of every per-unit array is unit ``u`` (unit
-``ul`` of stream ``u // Ui``).  The TPU version's lane transposes, tile
-padding and per-tile step modes existed for the TPU's lockstep and are not
-here: each unit carries its own token bound.
+``ul`` of stream ``u // Ui``).  The TPU version's lane transposes and tile
+padding existed for the TPU's lockstep and are not here, but its step
+budget is: every unit gets the bound and mode of its 1,024-unit tile
+(:func:`tile_budget`), so a corrupt unit decodes exactly as far as it does
+in the JAX package and flags the same way.
 
 The tail has two branches, as the JAX version's has.  Literal-heavy
 batches resolve their matches by pointer doubling and combine K1's literal
@@ -42,9 +44,10 @@ __all__ = ["CheckpointInflator", "inflate_indexed_stamp", "inflate_tail",
            "tail_pointers", "stamp", "stamp_match_total",
            "expand_matches", "expand_collapse", "expand_sweeps",
            "collapse_ptr", "top_distances", "adler_from_partials",
-           "adler_batch", "probe_match_profile"]
+           "adler_batch", "probe_match_profile", "tile_budget", "TUB"]
 
 F_BAD = 1
+TUB = 1024         # units per tile of the TPU kernel's step budget
 _MOD = 65521
 SWEEP_K = 48       # distances swept when a batch takes the sweeps
 
@@ -448,6 +451,43 @@ def inflate_tail(attr, kflag, s1k, s2k, prep: dict, *, collapse=False,
             ovf)
 
 
+def tile_budget(n_tokens, pair_steps, lit_ok) -> np.ndarray:
+    """K1's step budget per unit, ``(U, 2)`` int32 ``[bound, mode]``.
+
+    The rule of the JAX version's ``prepare`` for its Pallas kernel: the
+    units, stream-major, fall in tiles of :data:`TUB` (the last one padded
+    with units of no tokens that count as all-literal), and every unit of
+    a tile gets the tile's budget.  With ``kb`` and ``pb`` the tile's
+    largest ``n_tokens`` and ``pair_steps``:
+
+    * mode 1 when every unit of the tile is all-literal (``lit_ok``):
+      ``ceil(kb / 2)`` literal pairs, run four pairs at a time, so a unit
+      may decode ``8 · ((bound + 3) >> 2)`` literals;
+    * mode 2 when ``pb · 8 <= kb · 7``: ``pb`` steps, each one token and,
+      when the next code is a literal, that literal too;
+    * mode 0 otherwise: ``kb`` steps of one token.
+
+    A valid unit stops at its coverage long before; the budget decides
+    only how far a corrupt one runs, so one stream's flags may depend on
+    its neighbours in the tile, as they do in the JAX package.
+    """
+    U = len(n_tokens)
+    T = -(-U // TUB)
+    pad = (0, T * TUB - U)
+
+    def tiles(a, fill=0):
+        return np.pad(np.asarray(a, np.int64), pad,
+                      constant_values=fill).reshape(T, TUB)
+
+    kb = tiles(n_tokens).max(1)
+    pb = tiles(pair_steps).max(1)
+    lit_mode = tiles(lit_ok, 1).all(1)
+    pair_mode = ~lit_mode & (pb * 8 <= kb * 7)
+    mode = np.where(lit_mode, 1, np.where(pair_mode, 2, 0))
+    bound = np.where(lit_mode, -(-kb // 2), np.where(pair_mode, pb, kb))
+    return np.repeat(np.stack([bound, mode], 1), TUB, 0)[:U].astype(np.int32)
+
+
 class CheckpointInflator:
     """Host staging + device inflate for a batch of indexed streams.
 
@@ -485,8 +525,8 @@ class CheckpointInflator:
         the boundary-EOB bit jump), the table pool ``pool_t (P, 72)`` and
         ``pool_s (P, R)`` int32 (one row per DEFLATE block of the batch),
         ``ids (U, 1|2)`` int32 (each unit's block in the pool and, with
-        multiblock tables, its next block), ``kbound (U,)`` int32 token
-        bounds and, where any unit is
+        multiblock tables, its next block), ``kbound (U, 2)`` int32 step
+        budgets (:func:`tile_budget`) and, where any unit is
         stored, ``stored_gap (2·NG, U)`` int32 (rows ``0…NG``: gap
         offsets, ``-1`` in row 0 for token units and ``ob`` for absent
         gaps; rows ``NG…2·NG``: gap widths); plus the batch's scalars,
@@ -525,7 +565,9 @@ class CheckpointInflator:
         buf = np.zeros(int(offs[-1]), np.uint8)
         starts = np.zeros(U, np.int64)
         meta = np.zeros((U, 4 if multiblock else 3), np.int32)
-        kbound = np.zeros(U, np.int32)
+        n_tokens = np.zeros(U, np.int64)
+        psteps = np.zeros(U, np.int64)
+        lit_ok = np.zeros(U, bool)
         sgap = np.full((n_gaps, U), -1, np.int32)
         sgap[1:] = ob          # rank-2+ gaps: ob = "never" when absent
         sglen = np.zeros((n_gaps, U), np.int32)
@@ -552,7 +594,17 @@ class CheckpointInflator:
             meta[rows, 2] = np.where(st, 0, ow)
             if multiblock:
                 meta[rows, 3] = ix.eob_jump.astype(np.int32)
-            kbound[rows] = ix.n_tokens
+            n_tokens[rows] = ix.n_tokens
+            psteps[rows] = (ix.pair_steps if ix.pair_steps is not None
+                            else ix.n_tokens)
+            # all-literal: n_tokens == owned with no skip on either side
+            # of the unit (a match would leave one), no boundary EOB jump
+            # and no stored fill
+            nskip = np.append(ix.skip[1:], 0)
+            lit_ok[rows] = ((meta[rows, 2] == 0)
+                            | ((ix.n_tokens == meta[rows, 2])
+                               & (ix.skip == 0) & (nskip == 0)
+                               & (ix.eob_jump == 0) & ~st))
             sgap[0, rows] = np.where(
                 st, np.where(ix.gap_off == GAP_NONE, ob,
                              ix.gap_off.astype(np.int32)), -1)
@@ -591,7 +643,8 @@ class CheckpointInflator:
             pool_s=torch.from_numpy(np.ascontiguousarray(sym_all[:, :R])
                                     ).to(dev),
             ids=torch.from_numpy(ids).to(dev),
-            kbound=torch.from_numpy(kbound).to(dev),
+            kbound=torch.from_numpy(
+                tile_budget(n_tokens, psteps, lit_ok)).to(dev),
             stored_gap=(torch.from_numpy(np.concatenate([sgap, sglen]))
                         .to(dev) if has_stored else None))
 

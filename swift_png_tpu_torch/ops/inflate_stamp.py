@@ -23,7 +23,17 @@ skip, owned bytes and, with multiblock tables, the boundary-EOB bit jump —,
 the batch's table pool, ``pool_t (P, 72)`` and ``pool_s (P, R)`` int32 (one
 row per DEFLATE block, :func:`prepare_block_tables`), ``ids (U, 1|2)``
 int32, each unit's block and, with multiblock tables, its next block, and
-``kbound (U,)`` int32, the unit's token bound from its index.
+``kbound (U, 2)`` int32, the unit's step budget ``[bound, mode]`` — its
+tile's in the TPU kernel (``inflate_checkpoint.tile_budget``):
+
+* mode 0 — at most ``bound`` steps of one token;
+* mode 2 — at most ``bound`` steps, where a step that decodes a literal or
+  a match also takes the next token when that is a literal;
+* mode 1 — an all-literal unit: at most ``8 · ((bound + 3) >> 2)``
+  literals, any other code is bad, and the coverage flag is never set.
+
+A valid unit stops when its tokens cover its owned bytes, well inside its
+budget; the budget decides only how far a corrupt unit decodes.
 """
 
 from __future__ import annotations
@@ -119,8 +129,8 @@ def _layout(spans, meta, pool_t, pool_s, ids, kbound):
             or pool_s.shape[1] == 0):
         raise ValueError(f"pool_s must be (P, R) beside pool_t, got "
                          f"{tuple(pool_s.shape)}")
-    if kbound.shape != (U,):
-        raise ValueError(f"kbound must be (U,), got {tuple(kbound.shape)}")
+    if kbound.shape != (U, 2):
+        raise ValueError(f"kbound must be (U, 2), got {tuple(kbound.shape)}")
     # the kernel indexes the pool by these ids: none may leave it
     if U and not 0 <= int(ids.min()) <= int(ids.max()) < pool_t.shape[0]:
         raise ValueError(f"ids must index the pool's {pool_t.shape[0]} "
@@ -150,7 +160,7 @@ def decode_stamp_cuda(spans, meta, pool_t, pool_s, ids, kbound, *, ob: int):
     U, S, multiblock, R = _layout(spans, meta, pool_t, pool_s, ids, kbound)
     for name, t in (("spans", spans), ("meta", meta), ("pool_t", pool_t),
                     ("pool_s", pool_s), ("ids", ids), ("kbound", kbound)):
-        _kernels.require(t, name, torch.int32, 1 if name == "kbound" else 2)
+        _kernels.require(t, name, torch.int32, 2)
     dev = spans.device
     attr = torch.empty((U, ob), dtype=torch.int32, device=dev)
     flag = torch.empty(U, dtype=torch.int32, device=dev)
@@ -194,7 +204,9 @@ def decode_stamp_reference(spans, meta, pool_t, pool_s, ids, kbound, *,
 
 def decode_stamp_units(spans, meta, tabs, symtab, kbound, *, ob: int):
     """K1's function on per-unit tables, ``tabs (U, 72|144)`` and ``symtab
-    (U, R|2R)``: one token step per iteration, vectorized over units.
+    (U, R|2R)``: one token per iteration, vectorized over units.  A token
+    either takes a step of the unit's budget or, in mode 2, rides on the
+    step before it (a literal after a literal or a match).
     Arithmetic is int64 with the span words masked to 32 bits; the bit
     cursor wraps like the kernel's int32 one."""
     U, S = spans.shape
@@ -205,7 +217,10 @@ def decode_stamp_units(spans, meta, tabs, symtab, kbound, *, ob: int):
     m = meta.long()
     tb = tabs.long()
     sy = symtab.long()
-    kb = kbound.long()
+    kb = kbound[:, 0].long()
+    lit_only = kbound[:, 1] == 1
+    pair = kbound[:, 1] == 2
+    steps = torch.where(lit_only, 8 * ((kb + 3) >> 2), kb)
     owned = m[:, 2]
     jumpv = m[:, 3] if multiblock else torch.zeros_like(owned)
     # per-unit table columns: [first block, next block]
@@ -240,10 +255,12 @@ def decode_stamp_units(spans, meta, tabs, symtab, kbound, *, ob: int):
     flag = torch.zeros(U, dtype=torch.int64, device=dev)
     stopped = torch.zeros(U, dtype=torch.bool, device=dev)
     sw = torch.zeros(U, dtype=torch.bool, device=dev)
+    taken = torch.zeros(U, dtype=torch.int64, device=dev)  # steps taken
+    free = torch.zeros(U, dtype=torch.bool, device=dev)  # next literal rides
     one = torch.ones((), dtype=torch.int64, device=dev)
-    for k in range(int(kb.max()) if U else 0):
-        active = (k < kb) & (cur < owned) & ~stopped
-        if not bool(active.any()):
+    while True:
+        live = (cur < owned) & ~stopped
+        if not bool(live.any()):
             break
         win = window(bitrel)
         r15 = _rev15(win)
@@ -281,10 +298,13 @@ def decode_stamp_units(spans, meta, tabs, symtab, kbound, *, ob: int):
 
         may_jump = is_eob & (jumpv > 0) & ~sw if multiblock else \
             torch.zeros_like(is_eob)
+        rides = live & free & is_lit
+        spent = live & ~rides & (taken >= steps)
+        active = live & ~rides & ~spent
         bad = active & (lbad | (is_eob & ~may_jump)
                         | (~is_lit & ~is_eob & ~is_runtok)
-                        | (is_runtok & ~is_match))
-        go = active & ~bad
+                        | (is_runtok & ~is_match) | (lit_only & ~is_lit))
+        go = (active & ~bad) | rides
         tl = torch.where(go & is_lit, 1, torch.where(go & is_match, run, 0))
         aux = torch.where(is_lit, -(sym + 1), dist - 1)
         span = (b >= cur.clamp(min=0)[:, None]) & (b < (cur + tl)[:, None])
@@ -296,8 +316,10 @@ def decode_stamp_units(spans, meta, tabs, symtab, kbound, *, ob: int):
         sw = sw | (go & may_jump)
         cur = cur + tl
         flag = flag | torch.where(bad, 1, 0)
-        stopped = stopped | bad
-    flag = flag | torch.where(cur < owned, 2, 0)
+        stopped = stopped | bad | spent
+        taken = taken + active.long()
+        free = pair & active & ~bad & (is_lit | is_match)
+    flag = flag | torch.where((cur < owned) & ~lit_only, 2, 0)
 
     a = attr.long()
     lit = (a < 0) & (a != SENTINEL) & (b < owned[:, None])

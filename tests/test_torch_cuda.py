@@ -35,7 +35,8 @@ def cuda():
 
 def _stream(kind):
     """``(data, zlib stream, body to decode)``; ``corrupt`` decodes a body
-    with bits flipped in its dynamic block under the intact body's index."""
+    with bits flipped in its dynamic block under the intact body's index
+    (1,000 bytes: each copy then flags a unit under its tile's budget)."""
     rng = np.random.default_rng(2)
     if kind in ("literal", "corrupt"):
         y = (np.sin(np.arange(40_000) / 9.0) * 50 + 128).astype(np.int64)
@@ -44,7 +45,7 @@ def _stream(kind):
         stream = zlib.compress(data, 6)
         body = bytearray(stream[2:-4])
         if kind == "corrupt":
-            for at in range(len(body) // 3, len(body) // 3 + 300):
+            for at in range(len(body) // 3, len(body) // 3 + 1000):
                 body[at] ^= 0xA5
         return data, stream, bytes(body)
     if kind == "stored":
@@ -87,6 +88,34 @@ def test_decode_stamp_kernel_matches_plain(cuda, kind, ob):
     out, adler = CheckpointInflator(cuda).run([stream[2:-4]], [ix])
     assert out[0].cpu().numpy().tobytes() == data
     assert int(adler[0]) == zlib.adler32(data)
+
+
+@pytest.mark.parametrize("batch", ["mixed", "literal", "dense"])
+def test_decode_stamp_kernel_keeps_tile_budget_on_corrupt_bodies(cuda,
+                                                                  batch):
+    # the seeded corruptions of chip_smoke.py's k1_corrupt phase, each batch
+    # in one step mode: K1 exact against its plain version, and run on the
+    # card ends as run on the CPU does (same error case, or same bytes and
+    # Adler-32)
+    import chip_smoke as cs
+
+    names, n_pick, mode, seeds = cs.K1_CORRUPT[batch]
+    streams = cs.k1_corrupt_streams()
+    good = [streams[n][1][2:-4] for n in names]
+    indexes = [build_index(b, cs.K1C_N, OB) for b in good]
+    eng, host = CheckpointInflator(cuda), CheckpointInflator("cpu")
+    for seed in seeds:
+        bodies = cs.corrupt_bodies(good, n_pick, seed)
+        prep = eng.prepare(bodies, indexes)
+        assert set(prep["kbound"][:, 1].tolist()) == {mode}
+        args = (prep["spans"], prep["meta"], prep["pool_t"], prep["pool_s"],
+                prep["ids"], prep["kbound"])
+        got = decode_stamp_cuda(*args, ob=OB)
+        torch.cuda.synchronize()
+        for g, w in zip(got, decode_stamp_reference(*args, ob=OB)):
+            assert torch.equal(g, w), seed
+        assert (cs.run_outcome(eng, bodies, indexes)
+                == cs.run_outcome(host, bodies, indexes)), seed
 
 
 # delays 5 and 7 come from no PNG but are in the kernel's contract
@@ -245,6 +274,27 @@ def test_cand_kernel_matches_plain(cuda):
     want = tdo.menu_candidates_reference(*args, dmax=p["dmax"],
                                          stride=p["stride"])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["residues_far_d", "d_at_least_n",
+                                  "all_zero", "equal_scores", "dmax8",
+                                  "dmax32", "costs_outside_keys"])
+def test_cand_kernel_edge_cases(cuda, name):
+    # chip_smoke.py's K4 edge cases, the bytes 1..15 bytes off 16-byte
+    # alignment so the kernel's edge reads are guarded
+    import chip_smoke as cs
+
+    data, nvec, dv, cv = cs.k4_edge_cases()[name]
+    off = 1 + len(name) % 15
+    flat = torch.zeros(data.size + 32, dtype=torch.uint8, device=cuda)
+    d = flat[off:off + data.size]
+    d.copy_(torch.from_numpy(data))
+    args = [torch.from_numpy(x).to(cuda) for x in (dv, cv)]
+    nv = torch.from_numpy(nvec).to(cuda)
+    kw = dict(dmax=dv.shape[1], stride=cs.K4_STRIDE)
+    got = tdo.menu_candidates_cuda(*args, d, nv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdo.menu_candidates_reference(*args, d, nv, **kw))
 
 
 def test_dp_parse_and_emit_kernels_match_plain(cuda):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import conftest  # noqa: F401
 
 import jax
@@ -255,6 +256,24 @@ def test_candidates_plain_matches_pallas():
                                     dmax=dmax, stride=TILE).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got[0] >> 9 > 1).sum() > 1000     # the case has real matches
+
+
+@pytest.mark.parametrize("name", ["residues_far_d", "d_at_least_n",
+                                  "all_zero", "equal_scores", "dmax8",
+                                  "dmax32", "costs_outside_keys"])
+def test_candidates_plain_matches_pallas_edge_cases(name):
+    # every d % 4 residue and d up to 32,768, n off multiples of 4 and 32,
+    # d >= n, runs cut at 258, equal scores, dmax 8/16/32 (chip_smoke.py's
+    # K4 edge cases, which the card holds the kernel to)
+    data, ns, dv, cv = chip_smoke.k4_edge_cases()[name]
+    dmax = dv.shape[1]
+    out, _ = jdo.menu_candidates_pallas_batch(
+        jnp.asarray(dv), jnp.asarray(cv), jnp.asarray(data),
+        jnp.asarray(ns), dmax=dmax, stride=TILE, interpret=True)
+    got = tdo.menu_candidates_batch(_t(dv), _t(cv), _t(data), _t(ns),
+                                    dmax=dmax, stride=TILE).numpy()
+    np.testing.assert_array_equal(got, _flat(out, lead=True))
+    assert ((got[0] & 0x1FF) >= 3).sum() > 1000
 
 
 def _dp_tables(rng, B):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import conftest  # noqa: F401
 
 from swift_png_tpu.lz77.deflate import Deflator
@@ -46,7 +47,12 @@ def _streams():
     chain = b""
     for i in range(0, N, 3000):
         chain += co.compress(stored[i:i + 3000]) + co.flush(zlib.Z_FULL_FLUSH)
+    # chip_smoke.py's all-literal stream (a batch of it runs the TPU
+    # kernel's literal-pair loop, mode 1) and match-dense one (mode 0)
+    extra = chip_smoke.k1_corrupt_streams()
     return {
+        "huffman": extra["huffman"],
+        "dense": extra["dense"],
         "single": (single, zlib.compress(single, 6)),
         "crossing": (crossing, zlib.compress(crossing, 6)),
         "multiblock": (multi, d.pull()),
@@ -55,6 +61,18 @@ def _streams():
 
 
 STREAMS = _streams()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the plain K1 loops over tensors of a few hundred units: more torch
+    # threads only spin, and starve the suite's other workers
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BATCHES = {"single_block": ("single", "crossing"),
            "mixed": ("single", "crossing", "multiblock", "stored")}
 
@@ -135,8 +153,9 @@ def test_prepare_matches_jax_after_untransposing(batch, prepared):
         ref = np.asarray(jp[key])
         ref = ref.transpose(0, 2, 3, 1).reshape(-1, ref.shape[1])
         np.testing.assert_array_equal(got.numpy(), ref[:U], key)
+    # every unit carries its tile's step budget and mode
     np.testing.assert_array_equal(
-        tp["kbound"].numpy(), np.concatenate([ix.n_tokens for ix in jix]))
+        tp["kbound"].numpy(), np.repeat(np.asarray(jp["kbound"]), 1024, 0)[:U])
     if jp["has_stored"]:
         np.testing.assert_array_equal(tp["stored_gap"].numpy(),
                                       np.asarray(jp["stored_gap"])[:, :U])
@@ -211,10 +230,8 @@ def test_corrupt_body_flags_the_same_streams():
 @pytest.mark.parametrize("case", ["mixed", "corrupt"])
 def test_pool_and_ids_stamp_equals_per_unit_tables(case, prepared):
     # the plain K1 on the pool and ids against the Pallas kernel on JAX's
-    # per-unit table copies.  On a corrupt body a unit stops at its own
-    # token bound where the TPU kernel runs its tile's, so the port may also
-    # flag a unit as short that the TPU kernel lets run on: the port flags
-    # every unit the kernel flags, with its bits, and the same streams.
+    # per-unit table copies; every unit runs its tile's step budget, so
+    # on a corrupt body too the flags are equal, unit by unit
     if case == "mixed":
         _, jp, tp, got, want = prepared("mixed")
     else:
@@ -229,12 +246,8 @@ def test_pool_and_ids_stamp_equals_per_unit_tables(case, prepared):
     attr, flag, s1, s2 = (g.numpy() for g in got)
     jattr, jflag, js1, js2 = (w[:U] for w in want)
     B = len(BATCHES["mixed"])
-    np.testing.assert_array_equal(flag[jflag != 0], jflag[jflag != 0])
-    np.testing.assert_array_equal(flag.reshape(B, -1).any(1),
-                                  jflag.reshape(B, -1).any(1))
-    if case == "mixed":
-        np.testing.assert_array_equal(flag, jflag)
-    ok = (flag == 0) & (jflag == 0)
+    np.testing.assert_array_equal(flag, jflag)
+    ok = flag == 0
     np.testing.assert_array_equal(s1[ok], js1[ok])
     np.testing.assert_array_equal(s2[ok], js2[ok])
     owned = (np.arange(OB)[None, :] < tp["meta"].numpy()[:, 2:3]) & ok[:, None]
@@ -242,6 +255,52 @@ def test_pool_and_ids_stamp_equals_per_unit_tables(case, prepared):
     flagged = flag.reshape(B, -1).any(1)
     assert flagged.tolist() == ([False] * 4 if case == "mixed"
                                 else [False, False, True, False])
+
+
+# chip_smoke.py's seeded corruptions, each of a batch whose tiles run one
+# step mode of the TPU kernel: (streams, streams the corruption picks
+# from, the mode, seeds); "mixed" is this file's mixed batch
+CORRUPT = chip_smoke.K1_CORRUPT
+
+
+def _run_outcome(inflator, bodies, indexes, **kw):
+    """The error case ``run`` raises, or its bytes and Adler-32."""
+    try:
+        out, adler = inflator.run(bodies, indexes, **kw)
+    except (DecompressionError, JaxDecompressionError) as e:
+        return e.case
+    return np.asarray(out).tobytes(), np.asarray(adler).tolist()
+
+
+@pytest.mark.parametrize(
+    "batch,seed", [(b, s) for b, c in CORRUPT.items() for s in c[3]],
+    ids=[f"{b}-{s}" for b, c in CORRUPT.items() for s in c[3]])
+def test_corrupt_stream_decodes_as_pallas_kernel(batch, seed, monkeypatch):
+    # a corrupt body decoded with its intact index: the plain K1 runs each
+    # unit to its tile's step budget in its tile's mode, as the Pallas
+    # kernel does, so flags, owned bytes, Adler partials and the outcome
+    # of run are the JAX package's
+    import swift_png_tpu.native as jax_native
+    monkeypatch.setattr(jax_native, "available", lambda: False)
+    names, n_pick, mode, _ = CORRUPT[batch]
+    good = [STREAMS[n][1][2:-4] for n in names]
+    bodies, jix, tix, jp, tp = _prepare(
+        chip_smoke.corrupt_bodies(good, n_pick, seed), good)
+    assert np.asarray(jp["kbound"])[:, 1].tolist() == [mode]
+    assert set(tp["kbound"][:, 1].tolist()) == {mode}
+    attr, flag, s1, s2 = (g.numpy() for g in
+                          decode_stamp_reference(*_k1_args(tp), ob=OB))
+    U = flag.shape[0]
+    jattr, jflag, js1, js2 = (w[:U] for w in _jax_stamp(jp))
+    np.testing.assert_array_equal(flag, jflag)
+    ok = flag == 0
+    np.testing.assert_array_equal(s1[ok], js1[ok])
+    np.testing.assert_array_equal(s2[ok], js2[ok])
+    owned = (np.arange(OB)[None, :] < tp["meta"].numpy()[:, 2:3]) & ok[:, None]
+    np.testing.assert_array_equal(attr[owned], jattr[owned])
+    want = _run_outcome(JaxInflator(ob=OB, backend="pallas"), bodies, jix,
+                        keep_on_device=False)
+    assert _run_outcome(CheckpointInflator("cpu"), bodies, tix) == want
 
 
 @pytest.mark.parametrize("bad_id", [-1, "P"])
