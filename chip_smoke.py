@@ -28,13 +28,19 @@ corrupt body, and on seeded corruptions of batches in each of the TPU
 kernel's three step modes (``k1_corrupt``: flags compared, and ``run`` on
 the card against ``run`` on the CPU), K3 on odd pitches, one pixel group,
 heights 1 to 1,100 and base pointers off 16-byte alignment (the
-``k3_launch`` line gives its launch shape), K4 on its edge cases
+``k3_launch`` line gives its launch shape), K2 on K2′'s recipe, records
+crossing 128-byte rows, records longer than its ring, more records than
+it stages at once, long runs of ``len = 0`` records, a hostile stream
+among well-formed ones, rows off
+16-byte alignment, a stream and a batch without records, and the records
+of the ``sweeps`` batch (``k2_check``: each stream's path against
+``records_well_formed``), K4 on its edge cases
 (``k4_edge_check``: every ``d % 4`` residue, distances up to 32,768, ``n``
 off multiples of 4 and 32, ``d >= n``, runs cut at 258, equal scores,
 ``dmax`` 8, 16 and 32, bytes off 16-byte alignment) and K5 on inputs built
 to tie and on cost tables × 2,000.  K4 and K5 are timed on the
 photographic and the smooth batch; the ``warps_per_sm`` line gives K1's,
-K4's and K5's resident warps.
+K2's, K4's and K5's resident warps.
 
 Each path checks its output against the source and zlib's Adler-32, and
 each kernel of a path must have launched while the path ran.  Every phase
@@ -186,7 +192,8 @@ def k2_case(B: int, n_recs: int, Rp: int, rng, smooth: bool = False):
 def k2_rows_case(B: int, Opad: int, rng):
     """Records that cross 128-byte rows: d = 1 runs and non-power-of-two
     distances above 128, each run starting a few bytes before a row end
-    and reaching over several rows."""
+    (never before the previous run's end) and reaching over several
+    rows."""
     lit = rng.integers(0, 256, (B, Opad), dtype=np.uint8)
     recs, starts = [], [0]
     dists = (1, 3, 129, 200, 1000, 4097, 32768)
@@ -194,13 +201,89 @@ def k2_rows_case(B: int, Opad: int, rng):
         pos = 40_000
         k = 0
         while pos + 2000 < Opad:
-            pos = (pos // 128 + 1) * 128 - int(rng.integers(1, 9))
+            at = (pos // 128 + 1) * 128 - int(rng.integers(1, 9))
+            pos = at if at >= pos else at + 128
             ln = int(rng.integers(130, 1500))
             recs.append((pos, dists[k % len(dists)], ln))
             pos += ln + int(rng.integers(0, 300))
             k += 1
         starts.append(len(recs))
     return lit, np.asarray(recs, np.int32), np.asarray(starts, np.int32)
+
+
+def k2_long_case(Opad: int, ln: int, rng):
+    """One record per stream, longer than K2's 128 KB ring, at d = 1, 3,
+    4, 2,049 and 32,768."""
+    dists = (1, 3, 4, 2049, 32768)
+    lit = rng.integers(0, 256, (len(dists), Opad), dtype=np.uint8)
+    recs = np.array([(40_000 + 7 * k, d, ln) for k, d in enumerate(dists)],
+                    np.int32)
+    return lit, recs, np.arange(len(dists) + 1, dtype=np.int32)
+
+
+def k2_many_case(n: int, rng):
+    """One stream of ``n`` short records (more than K2 stages at once),
+    a few of them ``len = 0``, between two streams of a few records."""
+    recs, starts = [], [0]
+    for count in (5, n, 3):
+        pos = 100
+        for k in range(count):
+            ln = 0 if k % 97 == 50 else int(rng.integers(3, 40))
+            recs.append((pos, int(rng.integers(1, min(pos, 32768) + 1)), ln))
+            pos += ln + int(rng.integers(0, 9))
+        starts.append(len(recs))
+    Opad = max(r[0] + r[2] for r in recs) + 1000
+    lit = rng.integers(0, 256, (3, Opad), dtype=np.uint8)
+    return lit, np.asarray(recs, np.int32), np.asarray(starts, np.int32)
+
+
+def k2_noop_case(rng):
+    """Three 200 KB streams whose well-formed records stand between runs
+    of 64 to 200 consecutive ``(pos, 1, 0)`` records (no-ops), at the
+    start of a stream, inside it and at its end."""
+    Opad = 200_000
+    recs, starts = [], [0]
+    for _ in range(3):
+        pos, k = 100, 0
+        while pos + 3000 < Opad:
+            recs.extend([(pos, 1, 0)] * (64, 70, 131, 200)[k % 4])
+            ln = int(rng.integers(50, 3000))
+            recs.append((pos, int(rng.integers(1, min(pos, 32768) + 1)), ln))
+            pos += ln + int(rng.integers(0, 2000))
+            k += 1
+        recs.extend([(pos, 1, 0)] * 100)
+        starts.append(len(recs))
+    lit = rng.integers(0, 256, (3, Opad), dtype=np.uint8)
+    return lit, np.asarray(recs, np.int32), np.asarray(starts, np.int32)
+
+
+# the records of a hostile stream: before the row, past its end, d < 1, a
+# source before byte 0, padding
+K2_HOSTILE = ((-5, 3, 20), (290, 2, 50), (10, 0, 5), (5, 20, 10), (0, 1, 0))
+
+
+def k2_mixed_case(rng):
+    """Stream 1 holds :data:`K2_HOSTILE`; streams 0, 2 and 3 hold
+    well-formed records with a ``len = 0`` record among them (``Opad`` =
+    301, so rows are not 16-byte aligned)."""
+    lit = rng.integers(0, 256, (4, 301), dtype=np.uint8)
+    good = [(4, 1, 30), (40, 3, 9), (50, 0, 0), (60, 17, 200),
+            (270, 270, 31)]
+    recs = good + list(K2_HOSTILE) + good[:2] + good[3:] + good
+    starts = [0, 5, 10, 14, 19]
+    return lit, np.asarray(recs, np.int32), np.asarray(starts, np.int32)
+
+
+def k2_edge_cases(rng) -> dict:
+    """``Opad`` off a multiple of 16 (rows off 16-byte alignment) with one
+    stream that has no records, and a batch with no records at all."""
+    lit, recs, (_, s1, s2, s3) = k2_rows_case(3, 168_003, rng)
+    recs = np.concatenate([recs[:s1], recs[s2:]])
+    starts = np.array([0, s1, s1, s1 + s3 - s2], np.int32)
+    return {"odd_opad": (lit, recs, starts),
+            "no_records": (rng.integers(0, 256, (2, 4096), dtype=np.uint8),
+                           np.zeros((0, 3), np.int32),
+                           np.zeros(3, np.int32))}
 
 
 def png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -269,17 +352,75 @@ def probe_sample(bodies: list[bytes]) -> list:
             for i in sorted({0, n // 3, 2 * n // 3, n - 1})]
 
 
+def k2_reads_previous(starts, recs) -> int:
+    """Records (``len > 0``) whose sources reach the target of the record
+    before them in their stream: K2's ring path runs each such record in a
+    group of its own, after a barrier."""
+    recs = recs.reshape(-1, 3).long()
+    st = starts.long().clamp(0, recs.shape[0])
+    sid = torch.searchsorted(st, torch.arange(recs.shape[0],
+                                              device=recs.device),
+                             right=True) - 1
+    keep = (recs[:, 2] > 0) & (sid < st.numel() - 1)
+    pos, d, ln = recs[keep].unbind(1)
+    sid = sid[keep]
+    src_end = pos - d + torch.minimum(ln, d)
+    return int(((sid[1:] == sid[:-1]) & (src_end[1:] > pos[:-1])).sum())
+
+
+def k2_check(name: str, args, want=None, plain: bool = True,
+             all_ring: bool = False) -> dict:
+    """K2 on ``args = (starts, recs, lit)`` on the card, held exactly
+    against ``want`` (default: its plain version on the same inputs), each
+    stream's path against ``records_well_formed``; its device time beside
+    its bytes bound.  Emits one ``k2_check`` line and returns it."""
+    from swift_png_tpu_torch.ops.inflate_seqcopy import (
+        records_well_formed, seqcopy_cuda, seqcopy_reference)
+
+    starts, recs, lit = args
+    nb, opad = lit.shape
+    paths = torch.full((nb,), -1, dtype=torch.int32, device=lit.device)
+    got = seqcopy_cuda(starts, recs, lit, paths)
+    torch.cuda.synchronize()
+    if want is None:
+        want = seqcopy_reference(*args)
+    err = max_abs([(got, want)])
+    ring = records_well_formed(starts, recs, opad).to(torch.int32)
+    st = starts.long().clamp(0, recs.numel() // 3)
+    n_rec = int((st[1:] - st[:-1]).clamp(min=0).sum())
+    # lit read once, out written once, the records and starts read once
+    nbytes = 2 * nb * opad + n_rec * 12 + (nb + 1) * 4
+    line = dict(phase="k2_check", case=name, streams=nb, stream_bytes=opad,
+                records=n_rec, reads_previous=k2_reads_previous(starts, recs),
+                ring_streams=int(paths.clamp(min=0).sum()),
+                paths_equal_rule=torch.equal(paths, ring), max_abs_err=err,
+                ms=cuda_ms(lambda: seqcopy_cuda(*args), 10),
+                plain_ms=(cuda_ms(lambda: seqcopy_reference(*args), 1)
+                          if plain else None),
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    emit(**line)
+    if err:
+        fail(f"K2 differs from its plain version on {name}")
+    if not line["paths_equal_rule"]:
+        fail(f"K2's stream paths differ from records_well_formed on {name}: "
+             f"{paths.tolist()} against {ring.tolist()}")
+    if all_ring and line["ring_streams"] != nb:
+        fail(f"K2 left the ring path on {name}: {paths.tolist()}")
+    return line
+
+
 def records_path(dev) -> dict:
     """The ``records`` configuration through :func:`decode_indexed`; then
     its stages one by one, and K2 against its plain version on the
-    batch's own records.  Returns K2's numbers for the ``kernels`` line."""
+    batch's own records, every stream on K2's ring path.  Returns K2's
+    numbers for the ``kernels`` line."""
     from swift_png_tpu_torch import _kernels, decode_indexed
     from swift_png_tpu_torch._host.lz77.index import build_index
     from swift_png_tpu_torch.ops.inflate_checkpoint import (
         CheckpointInflator, adler_batch, stamp, stamp_match_total,
         tail_pointers)
     from swift_png_tpu_torch.ops.inflate_seqcopy import (
-        RECORDS_SMEM_CAP, build_records, seqcopy_cuda, seqcopy_reference)
+        RECORDS_SMEM_CAP, build_records, seqcopy_cuda)
     from swift_png_tpu_torch.ops.unfilter import defilter_cuda
     from swift_png_tpu_torch.parallel.batch import parse_indexed
 
@@ -348,38 +489,30 @@ def records_path(dev) -> dict:
     st["adler"] = host_ms(lambda: adler_batch(out2, out_size), REPS)
     filtered = out2[:, :out_size].reshape(B, H, 1 + W * 4)
     st["k3"] = host_ms(lambda: defilter_cuda(filtered, 4), REPS)
-    k2_ms = cuda_ms(lambda: seqcopy_cuda(starts, recs, litv), 10)
+    line = k2_check("records_batch", (starts, recs, litv), all_ring=True)
     best = min(times)
     emit(phase="match_path", config="records", streams=B,
          out_bytes=B * out_size, ms=times, ms_min=best,
          gb_per_s=B * out_size / best / 1e6,
          stage_ms_min={k: min(v) for k, v in st.items()}, stage_ms=st,
-         k2_device_ms=k2_ms, launches=launches, plan=plan,
+         k2_device_ms=line["ms"], launches=launches, plan=plan,
          pixels_equal=True, adler_equal=True)
 
-    torch.cuda.synchronize()
-    err = max_abs([(out2, seqcopy_reference(starts, recs, litv))])
-    n_rec = int(starts[-1])
-    emit(phase="k2_check", case="records_batch", streams=B,
-         stream_bytes=Opad, records=n_rec, max_abs_err=err)
-    if err:
-        fail("K2 differs from its plain version on the records batch")
-    return dict(
-        launches=launches["seqcopy"], max_abs_err=err, records=n_rec,
-        ms=k2_ms,
-        plain_ms=cuda_ms(lambda: seqcopy_reference(starts, recs, litv), 1),
-        # lit read once, out written once, the records and starts read once
-        bytes=2 * B * Opad + n_rec * 12 + (B + 1) * 4)
+    return dict(launches=launches["seqcopy"], max_abs_err=line["max_abs_err"],
+                records=line["records"], ms=line["ms"],
+                plain_ms=line["plain_ms"], bytes=line["bytes"])
 
 
 def sweeps_path(dev) -> None:
     """The ``sweeps`` configuration through ``inflate_zlib_batch``, then
-    its stages one by one."""
+    its stages one by one, and K2 on the batch's records (the path routes
+    them to the sweeps, past the records cap) against the sweeps' output."""
     from swift_png_tpu_torch import _kernels
     from swift_png_tpu_torch._host.lz77.index import build_index
     from swift_png_tpu_torch.ops.inflate_checkpoint import (
         SWEEP_K, CheckpointInflator, adler_batch, expand_sweeps, stamp,
         tail_pointers, top_distances)
+    from swift_png_tpu_torch.ops.inflate_seqcopy import build_records
 
     rows, streams = [], []
     for i in range(B):
@@ -421,6 +554,19 @@ def sweeps_path(dev) -> None:
         lambda: expand_sweeps(ptr, litv.reshape(-1), SWEEP_K), REPS)
     out2 = expand_sweeps(ptr, litv.reshape(-1), SWEEP_K).reshape(B, -1)
     st["adler"] = host_ms(lambda: adler_batch(out2, out_size), REPS)
+    # K2 on the batch's own records, with the routing unchanged: the cap is
+    # the batch's record count (a record starts at each match byte whose
+    # left neighbour in its row is not a match at the same distance)
+    Opad = litv.shape[1]
+    d = (torch.arange(B * Opad, device=dev) - ptr[:B * Opad]).reshape(B, -1)
+    head = torch.ones_like(d, dtype=torch.bool)
+    head[:, 1:] = d[:, 1:] != d[:, :-1]
+    n_rec = int(((d > 0) & head).sum())
+    starts, recs, ovf = build_records(ptr, B, Opad, n_rec)
+    if ovf or int(starts[-1]) != n_rec:
+        fail("sweeps path: the records count differs from build_records'")
+    k2_check("sweeps_batch", (starts, recs, litv), want=out2, plain=False,
+             all_ring=True)
     best = min(times)
     emit(phase="match_path", config="sweeps", streams=B,
          out_bytes=B * out_size, compressed_bytes=[len(s) for s in streams],
@@ -1069,8 +1215,6 @@ def main() -> int:
     from swift_png_tpu_torch.ops import convolve
     from swift_png_tpu_torch.ops.inflate_checkpoint import (
         CheckpointInflator, inflate_tail)
-    from swift_png_tpu_torch.ops.inflate_seqcopy import (
-        seqcopy_cuda, seqcopy_reference)
     from swift_png_tpu_torch.ops.inflate_stamp import (
         decode_stamp_cuda, decode_stamp_reference)
     from swift_png_tpu_torch.ops.unfilter import (
@@ -1219,27 +1363,27 @@ def main() -> int:
                            device=dev)[ftype]
     k3_ops = int(per_row.sum()) * (main_f.shape[2] - 1)
 
-    # ---- K2 against its plain version on K2′'s recipe and row crossings ----
+    # ---- K2 against its plain version: K2′'s recipe, row crossings, -------
+    # records longer than the ring, more records than one staged batch, a
+    # run of len = 0 records, a hostile stream among well-formed ones, rows
+    # off 16-byte alignment, a stream and a batch without records
+    k2_recipes = {
+        "exp_random_d": k2_case(4, 1100, 8208, rng),
+        "exp_smooth": k2_case(4, 1100, 8208, rng, smooth=True),
+        "row_crossing": k2_rows_case(4, 1 << 20, rng),
+        "long": k2_long_case(1 << 20, 600_000, rng),
+        "many": k2_many_case(3000, rng),
+        "noop_runs": k2_noop_case(rng),
+        "mixed": k2_mixed_case(rng),
+        **k2_edge_cases(rng)}
     k2_err = 0
-    for name, (lit, recs, starts) in {
-            "exp_random_d": k2_case(4, 1100, 8208, rng),
-            "exp_smooth": k2_case(4, 1100, 8208, rng, smooth=True),
-            "row_crossing": k2_rows_case(4, 1 << 20, rng)}.items():
-        k2_args = [torch.from_numpy(x).to(dev) for x in (starts, recs, lit)]
-        got = seqcopy_cuda(*k2_args)
-        torch.cuda.synchronize()
-        err = max_abs([(got, seqcopy_reference(*k2_args))])
-        k2_err = max(k2_err, err)
-        case_bytes = 2 * lit.size + recs.size * 4 + starts.size * 4
-        emit(phase="k2_check", case=name, streams=lit.shape[0],
-             stream_bytes=lit.shape[1], records=int(recs.shape[0]),
-             max_abs_err=err,
-             ms=cuda_ms(lambda: seqcopy_cuda(*k2_args), 10),
-             plain_ms=cuda_ms(lambda: seqcopy_reference(*k2_args), 1),
-             bytes=case_bytes,
-             bound_ms=case_bytes / HBM_BYTES_PER_S * 1e3)
-        if err:
-            fail(f"K2 differs from its plain version on {name}")
+    for name, (lit, recs, starts) in k2_recipes.items():
+        line = k2_check(name, tuple(torch.from_numpy(x).to(dev)
+                                    for x in (starts, recs, lit)),
+                        all_ring=name != "mixed")
+        k2_err = max(k2_err, line["max_abs_err"])
+        if name == "mixed" and line["ring_streams"] != 3:
+            fail("K2's mixed case: not exactly one stream off the ring")
 
     # ---- the main path -----------------------------------------------------
     _kernels.reset_launches()
@@ -1313,7 +1457,7 @@ def main() -> int:
          bound_by=b_smooth4[1])
     emit(phase="warps_per_sm",
          **{name: kernels[name].resident_warps()
-            for name in ("decode_stamp", "dp_parse", "cand")})
+            for name in ("decode_stamp", "seqcopy", "dp_parse", "cand")})
     emit(phase="bounds", k1_tokens=tokens, k1_literals=literals,
          k1_matches=matches, k1_eobs=eobs, k1_bytes=k1_bytes, k1_ops=k1_ops,
          k3_bytes=k3_bytes, k3_ops=k3_ops, k2_records=k2["records"],

@@ -84,7 +84,7 @@ KERNELS = {
     "defilter": Kernel("defilter", "defilter.cu", "spt_defilter",
                        [_P, _P, _I, _I, _I, _I, _P]),
     "seqcopy": Kernel("seqcopy", "seqcopy.cu", "spt_seqcopy",
-                      [_P] * 4 + [_I] * 3 + [_P]),
+                      [_P] * 4 + [_I] * 3 + [_P, _P]),
     "cand": Kernel("cand", "cand.cu", "spt_cand", [_P] * 5 + [_I] * 3 + [_P]),
     "dp_parse": Kernel("dp_parse", "dp_parse.cu", "spt_dp_parse",
                        [_P] * 11 + [_I] * 2 + [_P]),

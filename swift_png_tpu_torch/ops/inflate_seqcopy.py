@@ -21,13 +21,15 @@ import torch
 
 from .. import _kernels
 
-__all__ = ["build_records", "seqcopy_expand", "seqcopy_cuda",
-           "seqcopy_reference", "RECORDS_SMEM_CAP"]
+__all__ = ["build_records", "records_well_formed", "seqcopy_expand",
+           "seqcopy_cuda", "seqcopy_reference", "RECORDS_SMEM_CAP",
+           "MAX_DIST"]
 
 # the TPU kernel holds its records in scalar-prefetch memory (~1 MB): 3
 # int32 per record.  The routing in CheckpointInflator.run keeps the cap for
 # parity and reads it from this module at call time.
 RECORDS_SMEM_CAP = 1 << 16
+MAX_DIST = 32768        # DEFLATE's largest distance
 
 
 def build_records(ptr: torch.Tensor, B: int, Opad: int, cap: int):
@@ -84,6 +86,48 @@ def _shape(starts, recs, lit):
     return recs.reshape(-1, 3)
 
 
+def _stream_records(starts, nrec: int):
+    """Each stream's record range ``[rs, rs + count)`` after clipping
+    ``starts`` to ``[0, nrec]``, as the kernel clips it."""
+    st = starts.long()
+    rs = st[:-1].clamp(0, nrec)
+    count = torch.maximum(st[1:].clamp(0, nrec), rs) - rs
+    return rs, count
+
+
+def records_well_formed(starts: torch.Tensor, recs: torch.Tensor,
+                        Opad: int) -> torch.Tensor:
+    """``(B,)`` bool: the streams whose records K2 runs on its ring path.
+
+    After dropping records with ``len <= 0`` (no-ops on both paths), every
+    record of a well-formed stream has ``1 <= d <= min(pos, 32768)``, ``pos
+    + len <= Opad`` and ``pos`` at or after the previous record's end.
+    Every stream that :func:`build_records` makes from a valid batch is
+    well-formed; the kernel applies the same rule to the records it
+    stages."""
+    recs = recs.reshape(-1, 3).long()
+    B = starts.numel() - 1
+    dev = recs.device
+    rs, count = _stream_records(starts, recs.shape[0])
+    wf = torch.ones(B, dtype=torch.bool, device=dev)
+    k = torch.repeat_interleave(torch.arange(B, device=dev), count)
+    if k.numel() == 0:
+        return wf
+    first = torch.cumsum(count, 0) - count
+    pos, d, ln = recs[rs[k] + torch.arange(k.numel(), device=dev)
+                      - first[k]].unbind(1)
+    keep = ln > 0
+    own = (d >= 1) & (d <= pos.clamp(max=MAX_DIST)) & (pos + ln <= Opad)
+    # the largest end of the stream's earlier kept records: a running max
+    # of ends in [0, Opad] offset by stream, so streams never mix
+    off = k * (Opad + 1)
+    run = torch.cummax(off + torch.where(keep & own, pos + ln, 0), 0).values
+    prev = (torch.cat([run[:1] * 0, run[:-1]]) - off).clamp(min=0)
+    bad = keep & ~(own & (pos >= prev))
+    wf[k[bad]] = False
+    return wf
+
+
 def seqcopy_expand(starts: torch.Tensor, recs: torch.Tensor,
                    lit: torch.Tensor) -> torch.Tensor:
     """Run each stream's records in order over its literal-placed bytes.
@@ -97,17 +141,28 @@ def seqcopy_expand(starts: torch.Tensor, recs: torch.Tensor,
 
 
 def seqcopy_cuda(starts: torch.Tensor, recs: torch.Tensor,
-                 lit: torch.Tensor) -> torch.Tensor:
-    """Launch the K2 CUDA kernel (``csrc/seqcopy.cu``)."""
+                 lit: torch.Tensor,
+                 paths: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the K2 CUDA kernel (``csrc/seqcopy.cu``).  Where ``paths``
+    (``(B,)`` int32 on the card) is given, it receives each stream's path:
+    1 for the shared-memory ring (the streams of
+    :func:`records_well_formed`), 0 for the global-memory path."""
     recs = _shape(starts, recs, lit)
     _kernels.require(starts, "starts", torch.int32, 1)
     _kernels.require(recs, "recs", torch.int32, 2)
     _kernels.require(lit, "lit", torch.uint8, 2)
     B, Opad = lit.shape
+    if paths is not None:
+        _kernels.require(paths, "paths", torch.int32, 1)
+        if paths.shape != (B,):
+            raise ValueError(f"paths must be ({B},), got "
+                             f"{tuple(paths.shape)}")
     out = torch.empty_like(lit)
     _kernels.KERNELS["seqcopy"].launch(
         starts.data_ptr(), recs.data_ptr(), lit.data_ptr(), out.data_ptr(),
-        B, Opad, recs.shape[0], _kernels.stream_of(lit))
+        B, Opad, recs.shape[0],
+        None if paths is None else paths.data_ptr(),
+        _kernels.stream_of(lit))
     return out
 
 
@@ -124,10 +179,7 @@ def seqcopy_reference(starts: torch.Tensor, recs: torch.Tensor,
     dev = lit.device
     out = lit.clone()
     flat = out.reshape(-1)
-    nrec = recs.shape[0]
-    st = starts.long()
-    rs = st[:-1].clamp(0, nrec)
-    count = torch.maximum(st[1:].clamp(0, nrec), rs) - rs
+    rs, count = _stream_records(starts, recs.shape[0])
     for r in range(int(count.max()) if B else 0):
         bs = torch.nonzero(count > r).reshape(-1)
         pos, d, ln = recs[rs[bs] + r].unbind(1)

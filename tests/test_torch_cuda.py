@@ -10,13 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from swift_png_tpu_torch import BatchCodec, _kernels, decode_indexed
 from swift_png_tpu_torch._host.lz77.index import build_index
 from swift_png_tpu_torch.ops import deflate_optimal as tdo
 from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_cuda,
                                                   emit_terms_reference)
 from swift_png_tpu_torch.ops.inflate_checkpoint import CheckpointInflator
-from swift_png_tpu_torch.ops.inflate_seqcopy import (seqcopy_cuda,
+from swift_png_tpu_torch.ops.inflate_seqcopy import (records_well_formed,
+                                                     seqcopy_cuda,
                                                      seqcopy_reference)
 from swift_png_tpu_torch.ops.inflate_stamp import (decode_stamp_cuda,
                                                    decode_stamp_reference)
@@ -200,14 +202,27 @@ def _k2_case(B, n_recs, Rp, rng, smooth):
     return lit, np.asarray(recs, np.int32), np.asarray(starts, np.int32)
 
 
+def _k2_holds(cuda, starts, recs, lit):
+    """K2 on the card equals its plain version, and each stream took the
+    path ``records_well_formed`` gives it; returns the paths."""
+    args = [x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+            for x in (starts, recs, lit)]
+    args = [x.to(cuda) for x in args]
+    paths = torch.full((args[2].shape[0],), -1, dtype=torch.int32,
+                       device=cuda)
+    got = seqcopy_cuda(*args, paths=paths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, seqcopy_reference(*args))
+    ring = records_well_formed(args[0], args[1], args[2].shape[1])
+    assert torch.equal(paths, ring.to(torch.int32))
+    return paths.tolist()
+
+
 @pytest.mark.parametrize("smooth", [False, True], ids=["random_d", "smooth"])
 def test_seqcopy_kernel_matches_plain(cuda, smooth):
     lit, recs, starts = _k2_case(3, 300, 700, np.random.default_rng(5),
                                  smooth)
-    args = [torch.from_numpy(x).to(cuda) for x in (starts, recs, lit)]
-    got = seqcopy_cuda(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, seqcopy_reference(*args))
+    assert _k2_holds(cuda, starts, recs, lit) == [1, 1, 1]
 
 
 def test_seqcopy_kernel_keeps_hostile_records_in_their_row(cuda):
@@ -216,9 +231,31 @@ def test_seqcopy_kernel_keeps_hostile_records_in_their_row(cuda):
                          [5, 20, 10], [0, 1, 0]], dtype=torch.int32,
                         device=cuda)
     starts = torch.tensor([0, 3, 5], dtype=torch.int32, device=cuda)
-    got = seqcopy_cuda(starts, recs, lit)
-    torch.cuda.synchronize()
-    assert torch.equal(got, seqcopy_reference(starts, recs, lit))
+    assert _k2_holds(cuda, starts, recs, lit) == [0, 0]
+
+
+K2_CASES = ["row_crossing", "long", "many", "noop_runs", "mixed",
+            "odd_opad", "no_records"]
+
+
+@pytest.mark.parametrize("name", K2_CASES)
+def test_seqcopy_kernel_ring_and_global_paths(cuda, name):
+    """``chip_smoke.py``'s K2 cases: runs through the ring several times,
+    more records than one staged batch, runs of 64 to 200 ``len = 0``
+    records between well-formed ones, a hostile stream (global path)
+    among well-formed ones, rows off 16-byte alignment, no records."""
+    rng = np.random.default_rng(6)
+    if name in ("odd_opad", "no_records"):
+        lit, recs, starts = chip_smoke.k2_edge_cases(rng)[name]
+    else:
+        lit, recs, starts = {
+            "row_crossing": lambda: chip_smoke.k2_rows_case(3, 300_000, rng),
+            "long": lambda: chip_smoke.k2_long_case(1 << 20, 600_000, rng),
+            "many": lambda: chip_smoke.k2_many_case(3000, rng),
+            "noop_runs": lambda: chip_smoke.k2_noop_case(rng),
+            "mixed": lambda: chip_smoke.k2_mixed_case(rng)}[name]()
+    paths = _k2_holds(cuda, starts, recs, lit)
+    assert paths == ([1, 0, 1, 1] if name == "mixed" else [1] * len(paths))
 
 
 def test_decode_indexed_records_mode_on_card(cuda):

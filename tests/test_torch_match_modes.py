@@ -207,6 +207,158 @@ def test_seqcopy_reference_keeps_hostile_records_in_their_row():
     np.testing.assert_array_equal(out, want)
 
 
+# ---- K2's ring path: records cut into pieces, and the ring rule -----------
+
+def _long_records():
+    """Two 16 KB streams of long records at distances up to 4,098, each
+    longer than 4,096 bytes or (d = 3) reaching over many periods."""
+    rng = np.random.default_rng(21)
+    lit = rng.integers(0, 256, (2, 128 * 128), dtype=np.uint8)
+    recs = np.array([(300, 1, 5000), (5400, 3, 2500), (8000, 2049, 6100),
+                     (200, 4, 7000), (7300, 129, 4100), (11500, 4098, 4500)],
+                    np.int32)
+    return lit, recs, np.array([0, 3, 6], np.int32)
+
+
+def _cut(recs, starts, piece):
+    """Each record ``(pos, d, len)`` as consecutive pieces ``(pos + k, d,
+    n)`` of the same ``d``, ``n = piece()`` (the last one shorter)."""
+    out, st = [], [0]
+    for b in range(len(starts) - 1):
+        for pos, d, ln in recs[starts[b]:starts[b + 1]].tolist():
+            k = 0
+            while k < ln:
+                n = min(piece(), ln - k)
+                out.append((pos + k, d, n))
+                k += n
+        st.append(len(out))
+    return np.asarray(out, np.int32), np.asarray(st, np.int32)
+
+
+@pytest.fixture(scope="module")
+def long_records_jax():
+    """JAX's ``seqcopy_expand`` (interpret mode) on the uncut records."""
+    lit, recs, starts = _long_records()
+    B, Opad = lit.shape
+    return np.asarray(jsq.seqcopy_expand(
+        jnp.asarray(starts), jnp.asarray(recs.reshape(-1)),
+        jnp.asarray(lit.reshape(-1)), B=B, Opad=Opad,
+        interpret=True)).reshape(B, Opad)
+
+
+@pytest.mark.parametrize("piece", ["1", "7", "4096", "random"])
+def test_seqcopy_reference_on_pieces_matches_jax_uncut(long_records_jax,
+                                                       piece):
+    """A record cut into pieces of the same ``d`` is the same forward copy
+    (K2 runs a record that reaches past its ring segment that way)."""
+    lit, recs, starts = _long_records()
+    rng = np.random.default_rng(4)
+    size = (lambda: int(rng.integers(1, 600))) if piece == "random" else (
+        lambda: int(piece))
+    precs, pstarts = _cut(recs, starts, size)
+    assert len(precs) > len(recs)
+    got = tsq.seqcopy_reference(_t(pstarts), _t(precs), _t(lit)).numpy()
+    np.testing.assert_array_equal(got, long_records_jax)
+    assert tsq.records_well_formed(_t(pstarts), _t(precs),
+                                   lit.shape[1]).all()
+
+
+def _well_formed_loop(starts, recs, Opad):
+    """The ring rule record by record: drop ``len <= 0``; every other
+    record has ``1 <= d <= min(pos, 32768)``, ``pos + len <= Opad`` and
+    ``pos`` at or after the previous one's end."""
+    recs = recs.reshape(-1, 3).tolist()
+    out = []
+    for b in range(len(starts) - 1):
+        rs = min(max(int(starts[b]), 0), len(recs))
+        re = min(max(int(starts[b + 1]), rs), len(recs))
+        ok, end = True, 0
+        for pos, d, ln in recs[rs:re]:
+            if ln <= 0:
+                continue
+            ok = ok and 1 <= d <= min(pos, 32768) and pos + ln <= Opad \
+                and pos >= end
+            end = pos + ln
+        out.append(ok)
+    return out
+
+
+RULE_CASES = ["valid", "len0", "noop_run", "d0", "d_over_pos", "d_over_32768",
+              "past_opad", "overlap", "starts_clipped", "hostile_rows"]
+
+
+def _rule_case(kind, seed):
+    """K2′'s records with one stream made hostile by ``kind`` (``valid``,
+    ``len0`` and ``noop_run`` stay well-formed; ``starts_clipped`` runs
+    ``starts`` out of order and out of range)."""
+    rng = np.random.default_rng(seed)
+    lit, recs, starts = chip_smoke.k2_case(4, 30, 400, rng)
+    if kind == "hostile_rows":
+        return chip_smoke.k2_mixed_case(rng)
+    b = int(rng.integers(0, 4))
+    own = recs[starts[b]:starts[b + 1]].tolist()
+    r = int(rng.integers(1, len(own)))
+    pos, d, ln = own[r]
+    if kind == "len0":
+        # no-op records anywhere, with any pos and d
+        for rec in [(0, 0, 0), (-7, 99_999, 0), (10 ** 9, -3, -5),
+                    (0, 1, 0), (pos, 1, 0)]:
+            own.insert(int(rng.integers(0, len(own) + 1)), rec)
+    elif kind == "noop_run":
+        # more no-op records in a row than K2 plans from at once
+        own[r:r] = [(pos, 1, 0)] * 70
+    elif kind == "d0":
+        own[r] = (pos, 0, ln)
+    elif kind == "d_over_pos":
+        own[r] = (pos, pos + 1, ln)
+    elif kind == "d_over_32768":
+        own = [rec for rec in own if rec[0] + rec[2] < 40_000] + [
+            (40_000, 32_769, 10), (40_010, 1, 5)]
+    elif kind == "past_opad":
+        own = own[:r] + [(pos, d, lit.shape[1] - pos + 1)]
+    elif kind == "overlap":
+        p0, _, n0 = own[r - 1]
+        own[r] = (p0 + n0 - 1, min(d, p0 + n0 - 1), ln)
+    recs = np.concatenate([recs[:starts[b]],
+                           np.asarray(own, np.int32).reshape(-1, 3),
+                           recs[starts[b + 1]:]])
+    starts = starts.copy()
+    starts[b + 1:] += len(own) - (starts[b + 1] - starts[b])
+    if kind == "starts_clipped":
+        starts = np.array([-4, starts[2], starts[1], len(recs) + 9,
+                           len(recs) + 20], np.int32)
+    return lit, recs, starts
+
+
+@pytest.mark.parametrize("kind", RULE_CASES)
+def test_records_well_formed_matches_a_record_loop(kind):
+    for seed in range(6):
+        lit, recs, starts = _rule_case(kind, seed)
+        got = tsq.records_well_formed(_t(starts), _t(recs), lit.shape[1])
+        want = _well_formed_loop(starts, recs, lit.shape[1])
+        assert got.tolist() == want, (kind, seed)
+        if kind in ("valid", "len0", "noop_run"):
+            assert all(want)
+        elif kind != "starts_clipped":
+            assert not all(want)
+
+
+@pytest.mark.parametrize("kind", ["records", "sweeps"])
+def test_build_records_streams_are_well_formed(kind):
+    """Every stream that ``build_records`` makes from the smooth batches
+    (minimum-sum and ``y % 5`` filters) takes K2's ring path."""
+    rows, streams = _batch(kind)
+    bodies = [s[2:-4] for s in streams]
+    prep = tic.CheckpointInflator("cpu").prepare(
+        bodies, [build_index(b, rows[0].size, OB) for b in bodies])
+    litv, ptr = tic.tail_pointers(*tic.stamp(prep), prep)[:2]
+    B, Opad = litv.shape
+    starts, recs, ovf = tsq.build_records(ptr, B, Opad, B * Opad // 2)
+    assert not ovf and int(starts[-1]) > 100
+    assert tsq.records_well_formed(starts, recs, Opad).all()
+    assert _well_formed_loop(starts.numpy(), recs.numpy(), Opad) == [True] * B
+
+
 # ---- distance sweeps -------------------------------------------------------
 
 @pytest.mark.parametrize("dists", DISTS, ids=["mixed", "one", "many"])
