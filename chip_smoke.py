@@ -18,9 +18,19 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
   ``y % 5``, as complete zlib streams through ``CheckpointInflator.
   inflate_zlib_batch`` (K1, the distance sweeps, the collapse residual,
   the trailer checks);
-* the level-9 encode (``BatchCodec.encode``) of photographic and smooth
-  images, read back through :func:`decode_indexed` (K4, K5, K6; K1, K3
-  or K2).
+* the ``host_tier`` configuration: a batch of noisy zlib -9 streams
+  (near-uniform match distances) interleaved with the ``records`` rows,
+  and a batch of noisy streams alone, through ``inflate_zlib_batch`` (the
+  native host tier, overlapped with K1 and K2 on the records streams);
+* the level-9 encode (``BatchCodec.encode``, strict size policy) of
+  photographic and smooth images, read back through
+  :func:`decode_indexed` (K4, K5, K6; K1, K3 or K2).
+
+It builds the port's native host library (``swift_png_tpu_torch/_host/
+native``, ``g++``) beside the kernels and fails when the library is not
+available: the checkpoint-index walk, the host tier and the encoder's
+sampling and strict policy run in it.  The index stages are timed beside
+the Python walk they replaced.
 
 Beside the main batches, K1 is held against its plain version on a stored
 stream, a level-1 RLE stream, a stream with 15-bit literal codes and a
@@ -53,12 +63,14 @@ device it exits non-zero at once.  It imports nothing of JAX or of
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -302,6 +314,20 @@ def make_png(stream: bytes, index_blob: bytes, w: int | None = None,
             + png_chunk(b"IEND", b""))
 
 
+@contextlib.contextmanager
+def native_off():
+    """The port's native host library switched off, as on a machine that
+    cannot build it (the route the JAX package takes without its own)."""
+    from swift_png_tpu_torch._host import native
+
+    on = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = on
+
+
 # ---- timing ---------------------------------------------------------------
 
 def cuda_ms(fn, reps: int) -> float:
@@ -508,7 +534,8 @@ def sweeps_path(dev) -> None:
     its stages one by one, and K2 on the batch's records (the path routes
     them to the sweeps, past the records cap) against the sweeps' output."""
     from swift_png_tpu_torch import _kernels
-    from swift_png_tpu_torch._host.lz77.index import build_index
+    from swift_png_tpu_torch._host.lz77.index import (_build_index_host,
+                                                      build_index)
     from swift_png_tpu_torch.ops.inflate_checkpoint import (
         SWEEP_K, CheckpointInflator, adler_batch, expand_sweeps, stamp,
         tail_pointers, top_distances)
@@ -539,8 +566,13 @@ def sweeps_path(dev) -> None:
     st = {}
     bodies = [s[2:-4] for s in streams]
     st["index"] = host_ms(lambda: [build_index(b, out_size, OB)
-                                   for b in bodies], 1)
+                                   for b in bodies], REPS)
+    st["index_host"] = host_ms(lambda: [_build_index_host(b, out_size, OB)
+                                        for b in bodies], 1)
     indexes = [build_index(b, out_size, OB) for b in bodies]
+    if any(_build_index_host(b, out_size, OB).serialize() != ix.serialize()
+           for b, ix in zip(bodies[:4], indexes)):
+        fail("sweeps path: the native index differs from the host walk's")
     st["prepare"] = host_ms(lambda: eng.prepare(bodies, indexes), REPS)
     prep = eng.prepare(bodies, indexes)
     st["k1"] = host_ms(lambda: stamp(prep), REPS)
@@ -574,6 +606,125 @@ def sweeps_path(dev) -> None:
          ms=times, ms_min=best, gb_per_s=B * out_size / best / 1e6,
          stage_ms_min={k: min(v) for k, v in st.items()}, stage_ms=st,
          launches=launches, plan=plan, bytes_equal=True, trailers_checked=True)
+
+
+# ---- the native host tier of the match-dominated decode ----------------------
+
+def noisy_rows(seed: int, n: int) -> bytes:
+    """``n`` bytes of noisy repeat content: 4 KB of random bytes, then
+    copies of 6–40 bytes from uniform offsets in the last 32 KB, one random
+    literal after each copy.  Under ``zlib.compress(…, 9)`` most bytes are
+    matches whose distances spread near uniformly (``run``'s probe reads
+    ``cov48`` under 0.5), the content the native host tier serves."""
+    rng = np.random.default_rng(seed)
+    out = bytearray(rng.integers(0, 256, 4096, np.uint8).tobytes())
+    k = n // 6
+    lens = rng.integers(6, 41, k).tolist()
+    dists = rng.integers(41, 32769, k).tolist()
+    lits = rng.integers(0, 256, k).tolist()
+    for ln, d, lit in zip(lens, dists, lits):
+        if len(out) >= n:
+            break
+        p = len(out) - min(d, len(out))
+        out += out[p:p + ln]
+        out.append(lit)
+    return bytes(out[:n])
+
+
+def host_tier_inputs(b: int, h: int, w: int):
+    """The ``host_tier`` configuration's streams, each ``h·(1 + 4w)``
+    bytes: ``(mixed rows, mixed streams, noisy rows, noisy streams)``.  The
+    mixed batch holds noisy rows at level 9 at even indices and the
+    ``records`` configuration's rows (smooth image ``i``, minimum-sum
+    filter) at level 6 at odd ones; the noisy batch holds ``b`` noisy
+    streams, the mixed batch's first."""
+    n = h * (1 + 4 * w)
+    noisy = [noisy_rows(100 + i, n) for i in range(b)]
+    rows = [noisy[i // 2] if i % 2 == 0 else
+            filter_minsum(smooth_image(i, h, w).reshape(h, 4 * w), 4
+                          ).tobytes() for i in range(b)]
+    streams = [zlib.compress(r, 9 if i % 2 == 0 else 6)
+               for i, r in enumerate(rows)]
+    nstreams = [streams[2 * i] if 2 * i < b else zlib.compress(r, 9)
+                for i, r in enumerate(noisy)]
+    return rows, streams, noisy, nstreams
+
+
+def host_tier_path(dev) -> None:
+    """The ``host_tier`` configuration through ``inflate_zlib_batch``: a
+    mixed batch (noisy streams on the native tier, overlapped with the
+    records streams on the card: K1, K2) and a batch of noisy streams
+    alone (the native tier only, no kernel), both exact; then both
+    batches' ``run`` with the native library and with it forced off (the
+    JAX package's route without its library: every stream on the card)."""
+    from swift_png_tpu_torch import _kernels
+    from swift_png_tpu_torch._host.lz77.index import build_index
+    from swift_png_tpu_torch.ops.inflate_checkpoint import (
+        CheckpointInflator, probe_match_profile)
+
+    t0 = time.perf_counter()
+    rows, streams, noisy, nstreams = host_tier_inputs(B, H, W)
+    out_size = len(rows[0])
+    probes = [probe_match_profile(s[2:-4]) for s in streams[:2]]
+    emit(phase="host_tier_inputs", seconds=time.perf_counter() - t0,
+         streams=B, out_size=out_size,
+         compressed_bytes=[len(s) for s in streams],
+         probe_noisy=probes[0], probe_records=probes[1],
+         est_runs_noisy_x_b=probes[0][1] * out_size // probes[0][3] * B)
+    eng = CheckpointInflator(dev, ob=OB)
+    hostset = list(range(0, B, 2))
+    st = {}
+    for name, batch, want, tier in (
+            ("mixed", streams, rows, "mixed"),
+            ("noisy", nstreams, noisy, "host")):
+        _kernels.reset_launches()
+        out = eng.inflate_zlib_batch(batch, out_size)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        plan = eng.last_plan
+        if out is None or out.shape != (B, out_size) or out.cpu().numpy(
+                ).tobytes() != b"".join(want):
+            fail(f"host_tier {name}: inflated bytes differ from the rows")
+        if plan["tier"] != tier or (tier == "mixed"
+                                    and plan["hostset"] != hostset):
+            fail(f"host_tier {name} took another plan: {plan}")
+        if tier == "mixed" and (launches["decode_stamp"] < 1
+                                or launches["seqcopy"] < 1):
+            fail(f"host_tier mixed: K1 or K2 was not launched: {launches}")
+        if tier == "host" and any(launches.values()):
+            fail(f"host_tier noisy: a kernel was launched: {launches}")
+        st[f"{name}_call"] = host_ms(
+            lambda: eng.inflate_zlib_batch(batch, out_size), REPS)
+        bodies = [s[2:-4] for s in batch]
+        st[f"{name}_index"] = host_ms(
+            lambda: [build_index(b, out_size, OB) for b in bodies], REPS)
+        indexes = [build_index(b, out_size, OB) for b in bodies]
+        st[f"{name}_run"] = host_ms(lambda: eng.run(bodies, indexes), REPS)
+        # without the library: the same indexes with every stream on the
+        # card (the tier alone), and the whole call once (the index walk
+        # in Python too)
+        with native_off():
+            got, adler = eng.run(bodies, indexes)
+            off_plan = eng.last_plan
+            st[f"{name}_run_without_native"] = host_ms(
+                lambda: eng.run(bodies, indexes), 2)
+            res = []
+            st[f"{name}_call_without_native"] = host_ms(
+                lambda: res.append(eng.inflate_zlib_batch(batch, out_size)),
+                1)
+            out = res[0]
+        if (got.cpu().numpy().tobytes() != b"".join(want)
+                or out.cpu().numpy().tobytes() != b"".join(want)
+                or [int(a) for a in adler] != [zlib.adler32(r)
+                                               for r in want]):
+            fail(f"host_tier {name}: the run without the native library "
+                 f"differs from the rows")
+        emit(phase="host_tier", batch=name, streams=B,
+             out_bytes=B * out_size, plan=plan, launches=launches,
+             plan_without_native=off_plan,
+             ms_min={k: min(v) for k, v in st.items()
+                     if k.startswith(name)},
+             bytes_equal=True, trailers_checked=True)
 
 
 # ---- encode: the level 8-13 batched optimal parse ---------------------------
@@ -704,10 +855,12 @@ def k5_edge_checks(dev) -> int:
     from swift_png_tpu_torch.ops import deflate_optimal as tdo
 
     n = 256 * (1 + 256 * 4)
-    cases = [(name, tdo._batch_inputs([data] * 4, 4, 256 * 4 + 1, dev), 1)
-             for name, data in (("all_zero", bytes(n)),
-                                ("two_period", bytes([0x21, 0x7E])
-                                 * (n // 2)))]
+    # the generic start: no sampled statistics, so no warm tables
+    with native_off():
+        cases = [(name, tdo._batch_inputs([data] * 4, 4, 256 * 4 + 1, dev),
+                  1) for name, data in (("all_zero", bytes(n)),
+                                        ("two_period", bytes([0x21, 0x7E])
+                                         * (n // 2)))]
     cases += [(f"large_tables_{config}",
                encode_plan(dev, encode_images(config, 4, 256, 256))[2], 2000)
               for config in ("photographic", "smooth")]
@@ -877,7 +1030,8 @@ def encode_path(dev, config: str) -> dict:
     9, ``index=True``), checked through zlib and the port's
     ``decode_indexed``; then its stages one by one, best of ``ENC_REPS``."""
     from swift_png_tpu_torch import BatchCodec, _kernels, decode_indexed
-    from swift_png_tpu_torch._host.lz77.index import build_index
+    from swift_png_tpu_torch._host.lz77.index import (_build_index_host,
+                                                      build_index)
     from swift_png_tpu_torch.ops import convolve
     from swift_png_tpu_torch.ops import deflate_optimal as tdo
     from swift_png_tpu_torch.ops.deflate_emit import emit_terms_batch
@@ -956,10 +1110,29 @@ def encode_path(dev, config: str) -> dict:
     asm = lambda: [tdo._zlib_stream(d, t, *bd)
                    for d, t, bd in zip(datas, trees, bodies)]
     st["assembly"] = host_ms(asm, ENC_REPS)
-    if asm() != streams:
-        fail(f"encode_{config}: the stages give other streams than the call")
+    # the strict size policy ships a native stream where it is smaller
+    # than the device parse's by its rule; every other stream is the
+    # device parse's
+    dev_streams = asm()
+    rerouted = [i for i, (a, b) in enumerate(zip(dev_streams, streams))
+                if a != b]
+    if any(len(streams[i]) >= len(dev_streams[i]) for i in rerouted):
+        fail(f"encode_{config}: a rerouted stream is not the smaller one")
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        st["strict_estimate"] = host_ms(lambda: list(pool.map(
+            lambda d: tdo._strict_estimate(d, ENC_LEVEL), datas)), 1)
     st["index"] = host_ms(lambda: [build_index(s[2:-4], len(d), 256)
                                    for s, d in zip(streams, datas)], 1)
+    # the Python walk that the native one replaced, on a few streams
+    n_host = B if config == "smooth" else 4
+    pairs = list(zip(streams, datas))[:n_host]
+    st["index_host"] = host_ms(lambda: [
+        _build_index_host(s[2:-4], len(d), 256) for s, d in pairs], 1)
+    for s, d in pairs:
+        if (_build_index_host(s[2:-4], len(d), 256).serialize()
+                != build_index(s[2:-4], len(d), 256).serialize()):
+            fail(f"encode_{config}: the native index differs from the "
+                 f"host walk's")
     sizes = [len(s) for s in streams]
     zsizes = [len(zlib.compress(d, 9)) for d in datas]
     emit(phase="encode_path", config=config, streams=B, level=ENC_LEVEL,
@@ -968,6 +1141,8 @@ def encode_path(dev, config: str) -> dict:
          emit_slots_per_image=per_image, dp_iterations=iters,
          stage_ms_min={k: min(v) for k, v in st.items()}, stage_ms=st,
          launches=launches, readback_launches=dec_launches,
+         index_host_streams=n_host, strict_rerouted=rerouted,
+         menu_lengths=[len(m) for m in plan["menus"]],
          compressed_bytes=sizes, zlib9_bytes=zsizes,
          ratio_vs_zlib9=sum(sizes) / sum(zsizes), streams_inflate=True,
          pixels_equal=True)
@@ -1211,6 +1386,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from swift_png_tpu_torch import _kernels, decode_indexed
+    from swift_png_tpu_torch._host import native
     from swift_png_tpu_torch._host.lz77.index import build_index
     from swift_png_tpu_torch.ops import convolve
     from swift_png_tpu_torch.ops.inflate_checkpoint import (
@@ -1227,13 +1403,24 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    # the native host library builds (g++) while the kernels do (nvcc)
+    existed = os.path.exists(native._LIB_PATH)
     t0 = time.perf_counter()
-    kernels = _kernels.build()
-    regs = {k.name: [ln.strip() for ln in k.ptxas.splitlines()
-                     if "registers" in ln] for k in kernels.values()}
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         per_kernel={k.name: k.build_seconds for k in kernels.values()},
-         ptxas=regs)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(lambda: (native.available(),
+                                   time.perf_counter() - t0))
+        kernels = _kernels.build()
+        regs = {k.name: [ln.strip() for ln in k.ptxas.splitlines()
+                         if "registers" in ln] for k in kernels.values()}
+        emit(phase="build", seconds=time.perf_counter() - t0,
+             per_kernel={k.name: k.build_seconds for k in kernels.values()},
+             ptxas=regs)
+        ok, native_s = fut.result()
+    emit(phase="native", available=ok, path=native._LIB_PATH,
+         built=not existed, seconds=native_s, error=native.last_error())
+    if not ok:
+        fail(f"the native host library is not available: "
+             f"{native.last_error()}")
 
     # ---- inputs ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1427,6 +1614,7 @@ def main() -> int:
     k2 = records_path(dev)
     k2_err = max(k2_err, k2["max_abs_err"])
     sweeps_path(dev)
+    host_tier_path(dev)
 
     # ---- encode: K4, K5, K6 against their plain versions, then the path ----
     checks = [encode_kernel_checks(dev, config, encode_images(config, 4, 256,

@@ -1,7 +1,7 @@
 """Checkpoint index for parallel DEFLATE decoding (the port's copy of
 ``swift_png_tpu/lz77/index.py``: the same format, parser, serializer and
-host walker; the port has no native library, so :func:`build_index` is the
-host walk).
+host walker; :func:`build_index` walks in the port's native library when it
+is available, as the JAX package's does in its own).
 
 The reference inflator is a sequential state machine — one token at a time
 (``Sources/LZ77/Inflator/LZ77.InflatorBuffers.Stream.swift:266-381``).  The
@@ -42,6 +42,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native as _native
 from . import constants as C
 from .errors import DecompressionError
 
@@ -220,7 +221,7 @@ class CheckpointIndex:
         ver = data[0]
         ob = int.from_bytes(data[1:5], "big")
         if ob < 64 or ob % 64 != 0:
-            # index construction needs ob >= 64; a hostile spIx chunk must
+            # both builders require ob >= 64; a hostile spIx chunk must
             # not drive the kernels with unit shapes they never see
             raise ValueError("unsupported checkpoint index unit size")
         out_size = int.from_bytes(data[5:13], "big")
@@ -360,10 +361,38 @@ def build_index(body: bytes, out_size: int, ob: int = 1024,
     structural limits (one block boundary per unit; stored regions
     aligned to unit boundaries).  Returns ``None`` when the stream is
     outside the fast path.  One sequential pass over the token
-    *boundaries*; no output is materialized.
+    *boundaries*; no output is materialized.  The pass runs in the native
+    library when it is available and ``ob >= 64``, else in Python
+    (:func:`_build_index_host`); both give the same index.
     """
     if out_size == 0 or len(body) < 4:
         return None
+    if _native.available() and ob >= 64:
+        try:
+            r = _native.build_index(body, out_size, ob)
+        except _native.NativeError:
+            # keep the host taxonomy for malformed streams
+            raise DecompressionError.invalid_huffman_table()
+        if r == "host-retry":
+            # multi-gap stored chain — only the v5 host walker
+            # records per-unit extra gaps
+            return _build_index_host(body, out_size, ob)
+        if r is None:
+            return None  # outside the fast path (host walker agrees)
+        (bit_pos, skip, n_tokens, ub, uk, ej, gp, gl, ps, lit,
+         dist, end_bit, mb, ms) = r
+        if uk.any() and not lit.any():
+            # all-stored stream: dummy fixed table column
+            lit = FIXED_LIT_LENGTHS[None, :]
+            dist = FIXED_DIST_LENGTHS[None, :]
+        return CheckpointIndex(
+            ob=ob, out_size=out_size, bit_pos=bit_pos,
+            skip=skip.astype(np.uint32),
+            n_tokens=n_tokens.astype(np.uint32),
+            lit_lengths=lit, dist_lengths=dist, end_bit=end_bit,
+            match_bytes=mb, match_segs=ms, unit_block=ub,
+            unit_kind=uk, eob_jump=ej, gap_off=gp, gap_len=gl,
+            pair_steps=ps.astype(np.uint32))
     return _build_index_host(body, out_size, ob)
 
 

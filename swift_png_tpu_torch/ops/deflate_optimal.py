@@ -20,10 +20,12 @@ and chunk ``c`` at ``[c·1024, (c+1)·1024)`` (the order of JAX's
 ``transpose(0, 2, 1).reshape(-1)``), so pack offsets are one per-image
 prefix sum.
 
-The port has no native host library, so it behaves as the JAX package
-does when ``native.available()`` is false: no sampled menu distances and
-no warm start (:func:`_sample_stats`), and the strict size policy ships
-the device parse.
+With the port's native host library (:mod:`.._host.native`), each stream's
+menu gains the most frequent distances of a sampled greedy parse and its
+cost model a warm start (:func:`_sample_stats`), and the strict size policy
+re-encodes natively the images whose device parse loses to a native size
+probe (:func:`deflate_device_optimal_batch`).  Without the library, as in
+the JAX package, neither happens.
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs
 its plain PyTorch version (``*_reference``) for a CPU tensor.
@@ -32,16 +34,19 @@ its plain PyTorch version (``*_reference``) for a CPU tensor.
 from __future__ import annotations
 
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import _kernels
+from .._host import native as _native
 from .._host.bits import BitWriter, reverse_bits
 from .._host.lz77 import constants as C
 from .._host.lz77.deflate import Depths, _write_stored_block, search_parameters
 from .._host.lz77.huffman import canonical_codes, lengths_from_frequencies
+from .._host.lz77.index import _BitWalker, _flat_lut
 from .._kernels import resolve_device
 from .deflate import (_emit_tables, _write_block_header_and_tables,
                       append_bits, atoms32_to_bytes, max_term_bits,
@@ -90,12 +95,99 @@ def batch_layout(ns: list[int]):
 def _sample_stats(data: bytes):
     """``(extra menu distances, lit freq, dist freq)`` of a sampled parse.
 
-    The JAX package samples each stream with its native library; without
-    that library it returns ``([], None, None)``, and so does the port,
-    which has none: no extra menu distances, no warm start, and the DP
-    runs the level's iterations twice (the reference's generic start).
+    The native greedy-pass sampler (``sample_stats``) reads the stream's
+    first 64 KB; streams under 4,096 bytes, or a box without the native
+    library, get ``([], None, None)``: no extra menu distances, no warm
+    start, and the DP runs the level's iterations twice (the reference's
+    generic start)."""
+    if not _native.available() or len(data) < 4096:
+        return [], None, None
+    sample = data[: 1 << 16]
+    try:
+        return _native.sample_stats(sample, 4, 8)
+    except _native.NativeError:
+        pass
+    # the sampler failed: walk the tokens of a native level-4 deflate
+    try:
+        return _walk_stats(_native.deflate(sample, 4, "ios"), top=8)
+    except (_native.NativeError, IndexError, ValueError):
+        return [], None, None
+
+
+def _walk_stats(body: bytes, top: int):
+    """Token walk of a sampled stream: (top distances, lit/dist freqs).
+
+    The frequencies warm-start the ``Depths`` cost model (the reference
+    seeds it with generic costs and doubles the refinement iterations to
+    compensate, ``…Matches.Depths.swift:28-45``; a sampled seed reaches
+    the same costs with the level's plain iteration count).
     """
-    return [], None, None
+    w = _BitWalker(body)
+    w.read(1)
+    btype = w.read(2)
+    if btype != 2:
+        return [], None, None
+    hlit = w.read(5) + 257
+    hdist = w.read(5) + 1
+    hclen = w.read(4) + 4
+    ml = np.zeros(19, np.int64)
+    for i in range(hclen):
+        ml[C.CODELENGTH_ORDER[i]] = w.read(3)
+    mlut = _flat_lut(ml, 7)
+    lengths: list[int] = []
+    while len(lengths) < hlit + hdist:
+        e = int(mlut[w.peek(7)])
+        ln, sym = e >> 16, e & 0xFFFF
+        if ln == 0:
+            return [], None, None
+        w.pos += ln
+        if sym < 16:
+            lengths.append(sym)
+        elif sym == 16:
+            lengths += [lengths[-1]] * (3 + w.read(2))
+        elif sym == 17:
+            lengths += [0] * (3 + w.read(3))
+        else:
+            lengths += [0] * (11 + w.read(7))
+    la = np.array(lengths, np.int64)
+    lit = np.zeros(288, np.int64)
+    lit[:hlit] = la[:hlit]
+    dl = np.zeros(32, np.int64)
+    dl[:hdist] = la[hlit:]
+    litlut = _flat_lut(lit, 15)
+    distlut = (_flat_lut(dl, 15) if np.count_nonzero(dl)
+               else np.zeros(2, np.int64))
+    hist: dict[int, int] = {}
+    lit_freq = np.zeros(286, np.int64)
+    dist_freq = np.zeros(30, np.int64)
+    nbits = len(body) * 8
+    while w.pos + 15 < nbits:
+        e = int(litlut[w.peek(15)])
+        ln, sym = e >> 16, e & 0xFFFF
+        if ln == 0:
+            break
+        w.pos += ln
+        if sym < 286:
+            lit_freq[sym] += 1
+        if sym < 256:
+            continue
+        if sym == 256:
+            break
+        dec = sym - 257
+        if dec > 28:
+            break
+        w.read(int(C.RUN_EXTRA[dec]))
+        e2 = int(distlut[w.peek(15)])
+        dln, dsym = e2 >> 16, e2 & 0xFFFF
+        if dln == 0 or dsym > 29:
+            break
+        w.pos += dln
+        dist = int(C.DISTANCE_BASE[dsym]) + w.read(
+            int(C.DISTANCE_EXTRA[dsym]))
+        dist_freq[dsym] += 1
+        hist[dist] = hist.get(dist, 0) + 1
+    tops = [d for d, _ in sorted(hist.items(), key=lambda kv: -kv[1])[:top]]
+    return tops, lit_freq, dist_freq
 
 
 def _tables_from_depths(depths: Depths):
@@ -626,6 +718,30 @@ def _zlib_stream(data: bytes, tree, body: bytes, total: int) -> bytes:
     return w.drain() + zlib.adler32(data).to_bytes(4, "big")
 
 
+_STRICT_FULL_N = 1 << 17      # ≤128 KB: the size probe IS a full native run
+_STRICT_WINDOW = 1 << 15      # sampled-window width for larger images
+_STRICT_MARGIN = 1.02         # route native when device > est × margin
+
+
+def _strict_estimate(data: bytes, level: int):
+    """Native-parse size probe for the strict size policy.
+
+    Small images are encoded outright (the probe doubles as the
+    replacement stream); larger ones estimate bits/byte from three
+    scattered windows.
+    """
+    n = len(data)
+    if n <= _STRICT_FULL_N:
+        return ("full", _native.deflate(data, level, "zlib"))
+    W = _STRICT_WINDOW
+    tot_c = tot_n = 0
+    for s in (0, (n - W) // 2, n - W):
+        w = data[s: s + W]
+        tot_c += len(_native.deflate(w, level, "ios"))
+        tot_n += len(w)
+    return ("bpb", tot_c / tot_n)
+
+
 def deflate_device_optimal_batch(datas: list[bytes], level: int = 9,
                                  pitch: int = 0, bpp: int = 4, device=None,
                                  dbuf=None,
@@ -638,10 +754,14 @@ def deflate_device_optimal_batch(datas: list[bytes], level: int = 9,
     whole batch already staged on the device (``(B·stride,)`` uint8 in
     :func:`batch_layout`); it is used when every stream is in one bucket,
     and names the device when ``device`` is not given.
-    ``size_policy``: ``"strict"`` re-encodes menu-losing images with a
-    native host tier in the JAX package; the port has none, so it ships
-    the device parse under either policy, as the JAX package does
-    without its native library.
+
+    ``size_policy="strict"``, with the native library available, holds
+    each image to the native parse's size: a native size probe per image
+    (:func:`_strict_estimate`) runs on four threads overlapped with the
+    device pipeline, and an image whose device stream exceeds the probe's
+    estimate by over 2 % is re-encoded natively; the smaller stream ships.
+    The device parse still runs for every image.  ``"device"``, or no
+    library, always ships the device parse.
     """
     if size_policy not in ("device", "strict"):
         raise ValueError(f"unknown size_policy {size_policy!r}")
@@ -649,23 +769,45 @@ def deflate_device_optimal_batch(datas: list[bytes], level: int = 9,
         device = dbuf.device
     out: list[bytes | None] = [None] * len(datas)
     small = [i for i, d in enumerate(datas) if len(d) < 3]
-    for i in small:
-        out[i] = _stored_stream(datas[i])
-    # every image of a pipeline call pads to the largest one's tile
-    # count, so ragged batches run in power-of-two tile-count buckets
-    buckets: dict[int, list[int]] = {}
-    for i, d in enumerate(datas):
-        if len(d) >= 3:
-            tiles = -(-len(d) // TILE)
-            buckets.setdefault(tiles.bit_length(), []).append(i)
-    for key in sorted(buckets):
-        grp = buckets[key]
-        sub = [datas[i] for i in grp]
-        gbuf = dbuf if (not small and len(buckets) == 1) else None
-        atoms_list, totals, trees = optimal_pipeline_batch(
-            sub, level=level, pitch=pitch, bpp=bpp, device=device,
-            dbuf=gbuf)
-        bodies = _fetch_bodies(atoms_list, totals)
-        for j, i in enumerate(grp):
-            out[i] = _zlib_stream(datas[i], trees[j], *bodies[j])
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        est_futs = {}
+        if size_policy == "strict" and _native.available():
+            est_futs = {i: pool.submit(_strict_estimate, d, min(level, 13))
+                        for i, d in enumerate(datas) if len(d) >= 3}
+        for i in small:
+            out[i] = _stored_stream(datas[i])
+        # every image of a pipeline call pads to the largest one's tile
+        # count, so ragged batches run in power-of-two tile-count buckets
+        buckets: dict[int, list[int]] = {}
+        for i, d in enumerate(datas):
+            if len(d) >= 3:
+                tiles = -(-len(d) // TILE)
+                buckets.setdefault(tiles.bit_length(), []).append(i)
+        for key in sorted(buckets):
+            grp = buckets[key]
+            sub = [datas[i] for i in grp]
+            gbuf = dbuf if (not small and len(buckets) == 1) else None
+            atoms_list, totals, trees = optimal_pipeline_batch(
+                sub, level=level, pitch=pitch, bpp=bpp, device=device,
+                dbuf=gbuf)
+            bodies = _fetch_bodies(atoms_list, totals)
+            for j, i in enumerate(grp):
+                out[i] = _zlib_stream(datas[i], trees[j], *bodies[j])
+        # strict size policy: each device stream against its native-parse
+        # probe; losers re-encode natively (threaded) and the smaller
+        # stream ships
+        reroute = []
+        for i, fut in est_futs.items():
+            kind, est = fut.result()
+            if kind == "full":
+                if len(est) < len(out[i]):
+                    out[i] = est
+            elif len(out[i]) > est * len(datas[i]) * _STRICT_MARGIN:
+                reroute.append(i)
+        nstreams = pool.map(
+            lambda i: _native.deflate(datas[i], min(level, 13), "zlib"),
+            reroute)
+        for i, s in zip(reroute, nstreams):
+            if len(s) < len(out[i]):
+                out[i] = s
     return out  # type: ignore[return-value]

@@ -20,16 +20,20 @@ batches resolve their matches by pointer doubling and combine K1's literal
 partials into the checksum.  Match-dominated batches (``collapse``) take
 one of three expansions — the in-order records kernel K2
 (:mod:`.inflate_seqcopy`), the dense distance sweeps, or the dense pointer
-collapse — and checksum the output bytes.  The JAX package's fourth
-choice, its native host tier, has no counterpart in the port: the port
-routes as the JAX package does when its native library is absent.
+collapse — and checksum the output bytes.  As in the JAX package, a
+fourth choice serves noisy match-dominated streams (near-uniform match
+distances) off the device: the native host tier inflates them on threads
+(:mod:`.._host.native`), beside the device run of the rest of the batch.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
+from .._host import native as _native
 from .._host.lz77 import constants as C
 from .._host.lz77.errors import DecompressionError, StreamHeaderError
 from .._kernels import resolve_device
@@ -650,54 +654,62 @@ class CheckpointInflator:
 
     def run(self, bodies: list[bytes], indexes: list[CheckpointIndex],
             collapse: bool | None = None):
-        """Inflate a batch of same-size indexed streams on the device.
+        """Inflate a batch of same-size indexed streams.
 
         Returns ``(out (B, out_size) uint8 tensor on the device, adler (B,)
         uint32 numpy)``.  Raises :class:`DecompressionError` when any unit
         flags.  The Adler-32 is returned for the caller to hold against the
         stream trailers, as the JAX version's is.
 
-        Routing follows the JAX version's ``run`` with its native library
-        absent, so no stream takes a host tier.  ``collapse=None`` lets
+        Routing follows the JAX version's ``run``.  ``collapse=None`` lets
         :meth:`auto_collapse` choose.  A match-dominated batch is probed
         per stream (a spread sample, every stream when the sample
-        disagrees); if any stream's estimated records overflow
-        ``RECORDS_SMEM_CAP``, the batch takes the distance sweeps,
-        otherwise the records kernel at ``records_cap``, which grows ×4 up
-        to the cap on overflow and then gives way to the sweeps.  An index
-        parsed from a PNG chunk does not carry its match-byte count (the
-        JAX version then sees 0 and takes the literal branch); the port
-        counts those match bytes from K1's stamp, so such a batch routes
-        as a host-indexed one.  ``last_plan`` records the mode taken.
+        disagrees, else the sample's class for the whole batch).  A stream
+        whose estimated records overflow ``RECORDS_SMEM_CAP`` goes to the
+        native host tier when its 48 most frequent distances cover under
+        half its match bytes and the native library is available, else to
+        the distance sweeps.  Host streams inflate on native threads
+        (``inflate_batch``), overlapped with the device streams' run when
+        the batch is mixed.  Device streams take the records kernel at
+        ``records_cap``, which grows ×4 up to the cap on overflow and then
+        gives way to the sweeps, or the sweeps when any stream chose them.
+        An index parsed from a PNG chunk does not carry its match-byte
+        count (the JAX version then sees 0 and takes the literal branch);
+        the port counts those match bytes from K1's stamp, so such a batch
+        routes as a host-indexed one, on the device.  ``last_plan`` records
+        the tier and mode taken.
         """
-        records_smem_cap = inflate_seqcopy.RECORDS_SMEM_CAP
-        prep = self.prepare(bodies, indexes)
-        B, Ui, ob = prep["B"], prep["Ui"], prep["ob"]
-        out_size = prep["out_size"]
-        attr, kflag, s1k, s2k = stamp(prep)
-        if any(ix.match_segs < 0 for ix in indexes):
-            prep["match_total"] = stamp_match_total(attr, prep)
-        match_total = prep["match_total"]
+        out_size, ob = indexes[0].out_size, indexes[0].ob
+        if any(ix.out_size != out_size or ix.ob != ob for ix in indexes):
+            raise ValueError("a batch needs one out_size and one ob")
+        B = len(bodies)
+        Ui = (out_size + ob - 1) // ob
+        # host-built indexes carry their match bytes, so the tier is chosen
+        # before any staging; otherwise K1's stamp counts them first
+        counted = all(ix.match_segs >= 0 for ix in indexes)
+        prep = k1 = None
+        if counted:
+            match_total = sum(int(ix.match_bytes) for ix in indexes)
+        else:
+            prep = self.prepare(bodies, indexes)
+            k1 = stamp(prep)
+            match_total = prep["match_total"] = stamp_match_total(k1[0], prep)
         if collapse is None:
             collapse = self.auto_collapse(match_total, B, out_size, Ui, ob)
         aligned = (Ui * ob) % 128 == 0
         force_sweeps = False
         if collapse and aligned and match_total * 2 > B * out_size:
-            def decide(body):
-                probe = probe_match_profile(body)
-                if probe is None:
-                    return "device"
-                _, runs, _, seen = probe
-                est_runs = runs * out_size // max(seen, 1)
-                return ("sweeps" if est_runs * B > records_smem_cap
-                        else "device")
-
-            sample = sorted({0, B // 3, (2 * B) // 3, B - 1})
-            dec = {i: decide(bodies[i]) for i in sample}
-            if len(set(dec.values())) > 1:
-                dec.update((i, decide(bodies[i])) for i in range(B)
-                           if i not in dec)
+            dec = self._probe_tiers(bodies, out_size, host_ok=counted)
+            hostset = [i for i in range(B) if dec[i] == "host"]
+            if 0 < len(hostset) < B:
+                return self._run_mixed(bodies, indexes, hostset, collapse)
+            if hostset:
+                return self._run_host(bodies, out_size)
             force_sweeps = "sweeps" in dec.values()
+        if prep is None:
+            prep = self.prepare(bodies, indexes)
+            k1 = stamp(prep)
+        records_smem_cap = inflate_seqcopy.RECORDS_SMEM_CAP
         records_cap = sweep_k = None
         if collapse and aligned:
             records_cap = min(records_smem_cap,
@@ -706,8 +718,8 @@ class CheckpointInflator:
                 records_cap, sweep_k = None, SWEEP_K
         while True:
             out, flag, adler, ovf = inflate_tail(
-                attr, kflag, s1k, s2k, prep, collapse=collapse,
-                records_cap=records_cap, sweep_k=sweep_k)
+                *k1, prep, collapse=collapse, records_cap=records_cap,
+                sweep_k=sweep_k)
             if not ovf:
                 break
             # only the records kernel overflows: grow within the cap, then
@@ -721,6 +733,70 @@ class CheckpointInflator:
         self.last_plan = dict(tier="device", collapse=collapse,
                               records_cap=records_cap, sweep_k=sweep_k)
         return out, adler.cpu().numpy().astype(np.uint32)
+
+    @staticmethod
+    def _probe_tiers(bodies: list[bytes], out_size: int,
+                     host_ok: bool) -> dict[int, str]:
+        """Each stream's tier, ``"device"``, ``"sweeps"`` or ``"host"``,
+        from :func:`probe_match_profile` on a spread sample of the batch
+        (every stream when the sample disagrees)."""
+        B = len(bodies)
+        host_ok = host_ok and _native.available()
+
+        def decide(body):
+            probe = probe_match_profile(body)
+            if probe is None:
+                return "device"
+            cov48, runs, _, seen = probe
+            est_runs = runs * out_size // max(seen, 1)
+            if est_runs * B <= inflate_seqcopy.RECORDS_SMEM_CAP:
+                return "device"
+            # zlib -9-class noisy content: near-uniform match distances
+            # defeat every dense device strategy; native threads serve it
+            return "host" if cov48 < 0.5 and host_ok else "sweeps"
+
+        sample = sorted({0, B // 3, (2 * B) // 3, B - 1})
+        dec = {i: decide(bodies[i]) for i in sample}
+        if len(set(dec.values())) > 1:
+            return {i: dec[i] if i in dec else decide(bodies[i])
+                    for i in range(B)}
+        return dict.fromkeys(range(B), dec[sample[0]])
+
+    def _run_host(self, bodies: list[bytes], out_size: int):
+        """The whole batch on the native tier; the checksums ride a thread
+        pool too (ctypes releases the GIL)."""
+        outs = _native.inflate_batch(bodies, out_size, "ios")
+        with ThreadPoolExecutor() as pool:
+            adler = np.asarray(list(pool.map(_native.adler32, outs)),
+                               np.uint32)
+        arr = np.stack([np.frombuffer(o, np.uint8) for o in outs])
+        self.last_plan = dict(tier="host")
+        return torch.from_numpy(arr).to(self.device), adler
+
+    def _run_mixed(self, bodies: list[bytes], indexes: list[CheckpointIndex],
+                   hostset: list[int], collapse: bool):
+        """``hostset`` on native threads, overlapped with the other streams'
+        run on the device; the two halves merged in batch order."""
+        B, out_size = len(bodies), indexes[0].out_size
+        devset = [i for i in range(B) if i not in hostset]
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            fut = pool.submit(_native.inflate_batch,
+                              [bodies[i] for i in hostset], out_size, "ios")
+            dout, dadler = self.run([bodies[i] for i in devset],
+                                    [indexes[i] for i in devset],
+                                    collapse=collapse)
+            houts = fut.result()
+            hadler = list(pool.map(_native.adler32, houts))
+        out = torch.empty((B, out_size), dtype=torch.uint8, device=self.device)
+        out[devset] = dout
+        out[hostset] = torch.from_numpy(
+            np.stack([np.frombuffer(o, np.uint8) for o in houts])
+        ).to(self.device)
+        adler = np.empty(B, np.uint32)
+        adler[devset] = dadler
+        adler[hostset] = hadler
+        self.last_plan = dict(tier="mixed", hostset=hostset)
+        return out, adler
 
     def inflate_zlib_batch(self, datas: list[bytes], out_size: int):
         """Complete zlib streams → ``(B, out_size)`` uint8 on the device.

@@ -6,8 +6,8 @@ Counterpart of ``decode_indexed``, ``decode_stage``,
 ``spIx`` checkpoint chunk, inflates the whole batch with the
 checkpoint-parallel kernel, then defilters (K3) and convolves to RGBA.
 Encode packs and filters every scanline of the batch on the device, then
-deflates the batch with the level 8–13 optimal parse (K4, K5, K6) and
-writes the containers on the host.
+deflates the batch with the level 8–13 optimal parse (K4, K5, K6) or the
+native library's deflate, and writes the containers on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._host import native as _native
 from .._host.lz77.index import CheckpointIndex, build_index
 from .._host.png import chunk as chunks
 from .._host.png import parsing
@@ -183,23 +184,31 @@ class BatchCodec:
                metadata=None, shared_trees: bool = False,
                size_policy: str = "strict") -> list[bytes]:
         """Batch encode raw samples → standard PNG byte strings, the same
-        bytes as the JAX ``BatchCodec.encode`` without its native library.
+        bytes as the JAX ``BatchCodec.encode``.
 
         ``pixels``: ``(B, H, W, C)`` samples in the target depth (numpy or
         torch; sub-byte gray kinds take raw ``depth``-bit samples, ``(B,
         H, W)`` is read as one channel).  Serves the non-interlaced,
-        non-indexed kinds (v1/2/4/8/16, va8/16, rgb8/16, rgba8/16) at
-        levels 8–13: filter select on the device, the batched optimal
-        parse, IDAT chunks of ``hint`` bytes, an ``spIx`` checkpoint chunk
-        with ``index=True``, IEND.  ``size_policy`` is accepted; the port
-        has no native tier, so ``"strict"`` ships the device parse.
+        non-indexed kinds (v1/2/4/8/16, va8/16, rgb8/16, rgba8/16): filter
+        select on the device, then the deflate, IDAT chunks of ``hint``
+        bytes, an ``spIx`` checkpoint chunk with ``index=True``, IEND.
 
-        Indexed kinds, palettes, interlacing, metadata, shared trees and
-        levels ≤ 7 raise ``NotImplementedError``: they are queued in
-        ``ROADMAP.md`` (queue 1).
+        The deflate's route, as in the JAX package: levels 8–13 on a CUDA
+        device take the batched optimal parse (K4, K5, K6) under
+        ``size_policy``.  With the native library, levels <= 7 on any
+        device and levels 8–13 on a CPU device take its one-shot deflate
+        (one block per stream when ``index=True``, which the indexed
+        decoder prefers).  Without it, a CPU device runs the plain
+        versions of the device parse.
+
+        Indexed kinds, palettes, interlacing, metadata, shared trees and,
+        without the native library, levels <= 7 raise
+        ``NotImplementedError``: they are queued in ``ROADMAP.md``
+        (queue 1).
         """
         if kind is None:
             kind = "rgba8" if bits == 8 else "rgba16"
+        use_native = _native.available()
         why = None
         if kind not in _KINDS:
             why = f"kind {kind!r} (indexed and iOS kinds)"
@@ -211,13 +220,13 @@ class BatchCodec:
             why = "metadata chunks"
         elif shared_trees:
             why = "shared trees"
-        elif level < 8:
-            why = f"level {level} (levels <= 7)"
+        elif level < 8 and not use_native:
+            why = f"level {level} (levels <= 7 without the native library)"
         if why is not None:
             raise NotImplementedError(
                 f"BatchCodec.encode: {why} is not ported yet (ROADMAP.md, "
-                f"queue 1: levels <= 7 and shared trees; interlaced, "
-                f"indexed and metadata encode)")
+                f"queue 1: levels <= 7 without the native library and "
+                f"shared trees; interlaced, indexed and metadata encode)")
         pixel = recognize_pixel(_KINDS[kind])
         x = (pixels if isinstance(pixels, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(pixels)))
@@ -231,15 +240,20 @@ class BatchCodec:
         samples = x.to(device=self.device, dtype=torch.int32)
         rows = convolve.pack_rows(samples, pixel.depth, Cn, W)
         filtered = encode_stage(rows, delay).reshape(B, -1)
-        n_flat = filtered.shape[1]
-        stride = batch_layout([n_flat] * B)[0]
-        dbuf = torch.nn.functional.pad(filtered, (0, stride - n_flat))
         flat_np = filtered.cpu().numpy()
         datas = [flat_np[b].tobytes() for b in range(B)]
-        idats = deflate_device_optimal_batch(
-            datas, level=level, pitch=W * delay + 1, bpp=delay,
-            device=self.device, dbuf=dbuf.reshape(-1),
-            size_policy=size_policy)
+        if level >= 8 and (self.device.type != "cpu" or not use_native):
+            n_flat = filtered.shape[1]
+            stride = batch_layout([n_flat] * B)[0]
+            dbuf = torch.nn.functional.pad(filtered, (0, stride - n_flat))
+            idats = deflate_device_optimal_batch(
+                datas, level=level, pitch=W * delay + 1, bpp=delay,
+                device=self.device, dbuf=dbuf.reshape(-1),
+                size_policy=size_policy)
+        else:
+            idats = [_native.deflate(data, level, "zlib",
+                                     block_terms=1 << 22 if index else 0)
+                     for data in datas]
         outs = []
         for data, idat in zip(datas, idats):
             dest = chunks.ByteDestination()

@@ -379,7 +379,13 @@ def test_dp_parse_and_emit_kernels_match_plain(cuda):
             assert torch.equal(g, w)
 
 
-def test_encode_on_card_decodes_back(cuda):
+def test_encode_on_card_decodes_back(cuda, monkeypatch):
+    # the card's parse against the CPU's plain versions of it: with the
+    # native library on, a CPU device would encode natively and the strict
+    # policy could ship native streams, so both run without it
+    from swift_png_tpu_torch._host import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
     rng = np.random.default_rng(3)
     px = rng.integers(0, 256, (2, 48, 64, 4)).astype(np.uint8)
     px[1] = px[1] // 16 * 16
@@ -393,3 +399,45 @@ def test_encode_on_card_decodes_back(cuda):
     out = decode_indexed(pngs)
     assert _kernels.launch_counts()["decode_stamp"] == 1
     assert torch.equal(out.cpu(), torch.from_numpy(px))
+
+
+@pytest.mark.parametrize("kind", ["literal", "stored", "multiblock",
+                                  "fifteen_bit", "host_tier"])
+def test_native_library_builds_and_matches_host_walk_and_zlib(cuda, kind):
+    # the port's native host library on the card's machine: it builds
+    # there (g++, at first use), its index walk gives the Python walk's
+    # index, and its threaded inflate gives zlib's bytes
+    from swift_png_tpu_torch._host import native
+    from swift_png_tpu_torch._host.lz77.index import _build_index_host
+
+    assert native.available(), native.last_error()
+    if kind == "host_tier":
+        datas, streams = chip_smoke.host_tier_inputs(4, 64, 64)[:2]
+    else:
+        data, stream, _ = _stream(kind)
+        datas, streams = [data], [stream]
+    for data, stream in zip(datas, streams):
+        got = build_index(stream[2:-4], len(data), OB)
+        want = _build_index_host(stream[2:-4], len(data), OB)
+        assert got.serialize() == want.serialize()
+    outs = native.inflate_batch([s[2:-4] for s in streams],
+                                [len(d) for d in datas], "ios")
+    assert outs == [zlib.decompress(s) for s in streams] == datas
+
+
+def test_device_parse_with_native_sampling_matches_plain(cuda):
+    # with the native library on, each menu gains sampled distances and the
+    # cost model starts warm: the card's streams equal the plain versions'
+    datas = [chip_smoke.filter_rows(chip_smoke.bench_image(s, 48, 64)
+                                    .reshape(48, 256), 4).tobytes()
+             for s in range(2)]
+    plan = tdo._batch_inputs(datas, 4, 257, cuda)
+    assert plan["lit_fs"][0] is not None
+    _kernels.reset_launches()
+    got = tdo.deflate_device_optimal_batch(datas, level=9, pitch=257,
+                                           device=cuda)
+    assert _kernels.launch_counts()["dp_parse"] == \
+        tdo._initial_tables(plan, 9)[3]
+    assert got == tdo.deflate_device_optimal_batch(datas, level=9,
+                                                   pitch=257, device="cpu")
+    assert [zlib.decompress(s) for s in got] == datas

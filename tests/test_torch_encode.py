@@ -4,9 +4,9 @@ tree and table code, the cost refresh, the candidate search (K4), the DP
 parse (K5), term emission (K6), whole deflate streams and
 ``BatchCodec.encode``'s PNG bytes.  Everything is integer (the cost
 refresh rounds float32 logarithms to integers) and compares exactly.  The
-JAX side runs as its own tests do on the CPU: Pallas in interpret mode, and
-its native library switched off (the port has no host tier, so it encodes
-as the JAX package does without one)."""
+JAX side runs as its own tests do on the CPU: Pallas in interpret mode.
+Both packages' native libraries are switched off here;
+``tests/test_torch_native.py`` holds the two with their libraries on."""
 
 import zlib
 
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 import swift_png_tpu.native as jax_native
+import swift_png_tpu_torch._host.native as torch_native
 import swift_png_tpu.ops.deflate_optimal as jdo
 from swift_png_tpu.lz77 import constants as JC
 from swift_png_tpu.lz77 import deflate as jdeflate
@@ -50,6 +51,7 @@ TILE = 128 * 1024
 @pytest.fixture(autouse=True)
 def _no_native(monkeypatch):
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(torch_native, "available", lambda: False)
 
 
 def _t(x):

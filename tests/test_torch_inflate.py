@@ -281,7 +281,9 @@ def test_corrupt_stream_decodes_as_pallas_kernel(batch, seed, monkeypatch):
     # kernel does, so flags, owned bytes, Adler partials and the outcome
     # of run are the JAX package's
     import swift_png_tpu.native as jax_native
+    import swift_png_tpu_torch._host.native as torch_native
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(torch_native, "available", lambda: False)
     names, n_pick, mode, _ = CORRUPT[batch]
     good = [STREAMS[n][1][2:-4] for n in names]
     bodies, jix, tix, jp, tp = _prepare(

@@ -4,9 +4,9 @@ pointer collapse, the records build and the in-order records copy (K2 and
 its feasibility version K2′), the distance sweeps, the output-byte Adler-32,
 the host match probe, and ``CheckpointInflator.run``/``inflate_zlib_batch``
 routing.  Everything is integer and compares exactly.  The JAX side runs
-as its own tests do on the CPU: the xla backend, Pallas in interpret mode,
-and its native library switched off (the port has no host tier, so it
-routes as the JAX package does without one)."""
+as its own tests do on the CPU: the xla backend, Pallas in interpret mode.
+Both packages' native libraries are switched off here;
+``tests/test_torch_native.py`` holds the two with their libraries on."""
 
 import importlib.util
 import os
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 import chip_smoke
 import swift_png_tpu.native as jax_native
+import swift_png_tpu_torch._host.native as torch_native
 import swift_png_tpu.ops.inflate_checkpoint as jic
 import swift_png_tpu.ops.inflate_seqcopy as jsq
 from swift_png_tpu.lz77.errors import LZ77Error as JaxLZ77Error
@@ -43,6 +44,7 @@ DISTS = [[1, 3, 4, 7, 8, 12, 200, 2052], [5], list(range(1, 70))]
 @pytest.fixture(autouse=True)
 def _no_native(monkeypatch):
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(torch_native, "available", lambda: False)
 
 
 def _t(x):
