@@ -22,6 +22,10 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
   (near-uniform match distances) interleaved with the ``records`` rows,
   and a batch of noisy streams alone, through ``inflate_zlib_batch`` (the
   native host tier, overlapped with K1 and K2 on the records streams);
+* the general decode (``BatchCodec.decode``) of ordinary PNGs with no
+  ``spIx`` chunk: rgba8, Adam7 and iOS (CgBI) bgra8 batches of the bench
+  images (the fused inflate per image, K3 once or once per Adam7 pass,
+  the convolve), with the lockstep ``InflateFusedBatch`` timed beside it;
 * the level-9 encode (``BatchCodec.encode``, strict size policy) of
   photographic and smooth images, read back through
   :func:`decode_indexed` (K4, K5, K6; K1, K3 or K2).
@@ -312,6 +316,58 @@ def make_png(stream: bytes, index_blob: bytes, w: int | None = None,
     return (bytes([137, 80, 78, 71, 13, 10, 26, 10]) + png_chunk(b"IHDR", ihdr)
             + png_chunk(b"IDAT", stream) + png_chunk(b"spIx", index_blob)
             + png_chunk(b"IEND", b""))
+
+
+# Adam7 ((base x, base y), (stride x, stride y)), pass by pass
+ADAM7 = (((0, 0), (8, 8)), ((4, 0), (8, 8)), ((0, 4), (4, 8)),
+         ((2, 0), (4, 4)), ((0, 2), (2, 4)), ((1, 0), (2, 2)),
+         ((0, 1), (1, 2)))
+
+
+def adam7_filtered(px: np.ndarray, bpp: int) -> bytes:
+    """The interlaced filtered stream of ``px`` (``(h, w, c)`` uint8): each
+    Adam7 pass subsampled, filtered with :func:`filter_rows`, the passes
+    concatenated (empty passes have no rows)."""
+    parts = []
+    for (bx, by), (sx, sy) in ADAM7:
+        sub = px[by::sy, bx::sx]
+        if sub.size:
+            parts.append(filter_rows(sub.reshape(sub.shape[0], -1),
+                                     bpp).tobytes())
+    return b"".join(parts)
+
+
+def plain_png(w: int, h: int, stream: bytes, color: int = 6,
+              interlaced: bool = False, cgbi: bool = False,
+              hint: int = 1 << 15) -> bytes:
+    """An 8-bit PNG of ``w × h`` and IHDR color type ``color`` holding
+    ``stream`` in IDAT chunks of ``hint`` bytes, with no ``spIx`` chunk;
+    ``cgbi`` puts the iOS CgBI chunk first (the stream is then raw
+    DEFLATE of bgr/bgra samples)."""
+    ihdr = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+            + bytes([8, color, 0, 0, int(interlaced)]))
+    out = bytes([137, 80, 78, 71, 13, 10, 26, 10])
+    if cgbi:
+        out += png_chunk(b"CgBI", bytes([48, 0, 32, 2 if color == 6 else 6]))
+    out += png_chunk(b"IHDR", ihdr)
+    for ofs in range(0, len(stream), hint):
+        out += png_chunk(b"IDAT", stream[ofs:ofs + hint])
+    return out + png_chunk(b"IEND", b"")
+
+
+def general_png(px: np.ndarray, config: str, hint: int = 1 << 15) -> bytes:
+    """An ordinary PNG of ``px`` (``(h, w, 4)`` uint8; no ``spIx``), zlib
+    -6 in IDAT chunks of ``hint`` bytes: ``rgba8`` the rows filtered with
+    :func:`filter_rows`; ``adam7`` the Adam7 passes so filtered; ``cgbi``
+    bgra8 rows as raw DEFLATE after the iOS CgBI chunk."""
+    h, w = px.shape[:2]
+    src = px[..., [2, 1, 0, 3]] if config == "cgbi" else px
+    f = (adam7_filtered(src, 4) if config == "adam7"
+         else filter_rows(src.reshape(h, w * 4), 4).tobytes())
+    s = zlib.compress(f, 6)
+    return plain_png(w, h, s[2:-4] if config == "cgbi" else s,
+                     interlaced=config == "adam7", cgbi=config == "cgbi",
+                     hint=hint)
 
 
 @contextlib.contextmanager
@@ -1380,6 +1436,158 @@ def k3_launch(kernel, h: int, delay: int) -> dict:
                 registers=None if regs is None else int(regs))
 
 
+def inflate_trace(eng, idat: bytes, nbytes: int, fmt: str) -> dict:
+    """One stream's fused inflate traced: the torch ops it dispatches per
+    block, and under ``torch.profiler`` its kernels' device time and
+    launches per block, the heaviest five, and the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        eng.inflate(idat, nbytes, fmt, keep_on_device=True)
+    blocks = eng.last_run["blocks"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.inflate(idat, nbytes, fmt, keep_on_device=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return dict(blocks=blocks, torch_ops_per_block=Count.n / blocks,
+                kernels_per_block=sum(e.count for e in kernels) / blocks,
+                device_ms=device_ms, wall_ms_traced=wall,
+                top=[[e.key[:60], dev_us(e) / 1e3, e.count] for e in top])
+
+
+GD_CONFIGS = ("rgba8", "adam7", "cgbi")
+GD_REPS = 3             # warm timed calls of each general decode batch
+
+
+def general_decode_path(dev, config: str) -> dict:
+    """``BatchCodec.decode`` of B = 32 ordinary 512×512 PNGs of the bench
+    recipe (:func:`general_png`; no ``spIx``): the fused inflate per image,
+    K3 (once per Adam7 pass), the convolve.  Exact against the source
+    pixels, K3 launched and held against its plain version at every shape
+    the batch gives it; the stage split, and the lockstep
+    ``InflateFusedBatch.inflate_batch`` of the same streams as a figure
+    beside the path."""
+    from swift_png_tpu_torch import BatchCodec, _kernels
+    from swift_png_tpu_torch.ops import convolve
+    from swift_png_tpu_torch.ops.deinterlace import (deinterlace_samples,
+                                                     pass_geometry)
+    from swift_png_tpu_torch.ops.inflate_fused import InflateFusedBatch
+    from swift_png_tpu_torch.ops.unfilter import (defilter_cuda,
+                                                  defilter_reference)
+    from swift_png_tpu_torch.parallel.batch import _fused_engine, lex_png
+
+    t0 = time.perf_counter()
+    images = [bench_image(seed) for seed in range(DISTINCT)]
+    distinct = [general_png(px, config) for px in images]
+    order = [i % DISTINCT for i in range(B)]
+    pngs = [distinct[i] for i in order]
+    want = torch.from_numpy(np.stack([images[i] for i in order])).to(dev)
+    inputs_s = time.perf_counter() - t0
+    passes, interlaced_bytes = pass_geometry((W, H), 32)
+    nbytes = interlaced_bytes if config == "adam7" else H * (1 + 4 * W)
+
+    codec = BatchCodec(dev)
+    _kernels.reset_launches()
+    out = codec.decode(pngs, keep_on_device=True)
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    want_k3 = len(passes) if config == "adam7" else 1
+    if launches["defilter"] != want_k3:
+        fail(f"general_decode {config}: K3 launched "
+             f"{launches['defilter']} times, not {want_k3}")
+    if out.device != want.device or not torch.equal(out, want):
+        fail(f"general_decode {config}: pixels differ from the source")
+    times = host_ms(lambda: codec.decode(pngs, keep_on_device=True),
+                    GD_REPS)
+
+    # ---- stages: the functions the call runs, timed apart -----------------
+    st = {"lexing": host_ms(lambda: [lex_png(p) for p in pngs], GD_REPS)}
+    idats = [lex_png(p)[4] for p in pngs]
+    eng = _fused_engine(dev)
+    fmt = "ios" if config == "cgbi" else "zlib"
+    # each distinct stream once (the batch repeats them)
+    per_ms, blocks, retries, flats = [], [], 0, []
+    for idat in idats[:DISTINCT]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flats.append(eng.inflate(idat, nbytes, fmt, keep_on_device=True))
+        torch.cuda.synchronize()
+        per_ms.append((time.perf_counter() - t0) * 1e3)
+        blocks.append(eng.last_run["blocks"])
+        retries += eng.last_run["retries"]
+    flat = torch.stack([flats[i] for i in order])
+    trace = inflate_trace(eng, idats[0], nbytes, fmt)
+    # the device's idle share over an untraced inflate of the same stream
+    trace["idle_share"] = (1 - trace["device_ms"] / per_ms[0]
+                           if trace["device_ms"] else None)
+    k3, k3_err = [], 0
+    shapes = ([(z, off, sy, pitch + 1) for z, _, sy, pitch, off in passes]
+              if config == "adam7" else [(None, 0, H, 1 + 4 * W)])
+    for z, off, rows_n, pitch1 in shapes:
+        f = flat[:, off:off + rows_n * pitch1].reshape(B, rows_n, pitch1)
+        f = f.contiguous()
+        got = defilter_cuda(f, 4)
+        torch.cuda.synchronize()
+        err = max_abs([(got, defilter_reference(f, 4))])
+        k3_err = max(k3_err, err)
+        k3.append(dict(adam7_pass=z, shape=list(f.shape), max_abs_err=err,
+                       ms=cuda_ms(lambda: defilter_cuda(f, 4), 10)))
+        if err:
+            fail(f"general_decode {config}: K3 differs from its plain "
+                 f"version at shape {list(f.shape)}")
+    if config == "adam7":
+        st["deinterlace"] = host_ms(lambda: deinterlace_samples(
+            flat, size=(W, H), depth=8, channels=4), GD_REPS)
+        samples = deinterlace_samples(flat, size=(W, H), depth=8,
+                                      channels=4)
+        st["convolve"] = host_ms(lambda: convolve.samples_to_rgba(
+            samples, depth=8, channels=4), GD_REPS)
+    else:
+        rows = defilter_cuda(flat.view(B, H, 1 + 4 * W), 4)
+        st["convolve"] = host_ms(lambda: convolve.unpack_rgba(
+            rows, depth=8, channels=4, width=W, is_bgr=config == "cgbi"),
+            GD_REPS)
+
+    # ---- the lockstep batch inflate of the same streams (a figure) --------
+    beng = InflateFusedBatch(device=dev)
+    got = beng.inflate_batch(idats, nbytes, fmt)
+    if not torch.equal(got, flat):
+        fail(f"general_decode {config}: the batch inflate differs")
+    batch_ms = host_ms(lambda: beng.inflate_batch(idats, nbytes, fmt), 2)
+    best = min(times)
+    emit(phase="general_decode", config=config, streams=B,
+         out_bytes=B * nbytes, inputs_seconds=inputs_s, ms=times,
+         ms_min=best, mb_per_s=B * nbytes / best / 1e3,
+         stage_ms_min={k: min(v) for k, v in st.items()}, stage_ms=st,
+         inflate=dict(ms=per_ms, ms_mean=sum(per_ms) / DISTINCT,
+                      blocks=blocks, ms_per_block=sum(per_ms) / sum(blocks),
+                      retries=retries,
+                      compressed_bytes=[len(d) for d in idats[:DISTINCT]]),
+         k3=k3, launches=launches, pixels_equal=True, trace=trace,
+         batch_inflate=dict(ms=batch_ms, blocks=beng.last_run["blocks"],
+                            retries=beng.last_run["retries"]))
+    return dict(k3_err=k3_err, k3_launches=launches["defilter"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1615,6 +1823,8 @@ def main() -> int:
     k2_err = max(k2_err, k2["max_abs_err"])
     sweeps_path(dev)
     host_tier_path(dev)
+    for config in GD_CONFIGS:
+        k3_err = max(k3_err, general_decode_path(dev, config)["k3_err"])
 
     # ---- encode: K4, K5, K6 against their plain versions, then the path ----
     checks = [encode_kernel_checks(dev, config, encode_images(config, 4, 256,

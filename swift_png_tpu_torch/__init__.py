@@ -5,11 +5,12 @@ A package beside the JAX one: it imports ``torch`` and numpy, never
 unless the caller names another device; on a CUDA device the hand-written
 kernels in ``csrc/`` run, on the CPU their plain PyTorch versions.
 
-Served so far: batched decode of indexed PNGs (files carrying an ``spIx``
-checkpoint chunk), :func:`decode_indexed`; batched inflate of complete
-zlib streams, ``ops.inflate_checkpoint.CheckpointInflator.
-inflate_zlib_batch``; and batched level 8–13 encode of non-indexed,
-non-interlaced images, :meth:`BatchCodec.encode`.
+Served so far: batched decode of any same-shape PNGs (interlaced and iOS
+files too), :meth:`BatchCodec.decode`; batched decode of indexed PNGs
+(files carrying an ``spIx`` checkpoint chunk), :func:`decode_indexed`;
+batched inflate of complete zlib streams, ``ops.inflate_checkpoint.
+CheckpointInflator.inflate_zlib_batch``; and batched level 8–13 encode of
+non-indexed, non-interlaced images, :meth:`BatchCodec.encode`.
 """
 
 from .parallel.batch import BatchCodec, decode_indexed

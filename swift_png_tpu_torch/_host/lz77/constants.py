@@ -1,5 +1,5 @@
-"""RFC 1951 constant tables the index walker and the encoder read (copy of
-``swift_png_tpu/lz77/constants.py``)."""
+"""RFC 1951 constant tables the inflate engines, the index walker and the
+encoder read (copy of ``swift_png_tpu/lz77/constants.py``)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,11 @@ CODELENGTH_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2,
 
 MAX_RUN = 258
 MAX_DISTANCE = 32768
+
+# fixed Huffman code lengths (RFC 1951 §3.2.6)
+FIXED_LITERAL_LENGTHS = np.array([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8,
+                                 dtype=np.int64)
+FIXED_DISTANCE_LENGTHS = np.array([5] * 32, dtype=np.int64)
 
 
 def _run_decades() -> np.ndarray:

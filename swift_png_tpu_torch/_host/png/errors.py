@@ -1,4 +1,4 @@
-"""PNG lexing and parsing errors (the cases indexed decode can raise,
+"""PNG lexing and parsing errors (the cases the port's decode can raise,
 copied from ``swift_png_tpu/png/errors.py``)."""
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ def _parsing_case(name: str, message: str):
 for _name, _msg in [
     ("invalidHeaderChunkLength", "invalid IHDR chunk length"),
     ("invalidHeaderPixelFormatCode", "invalid IHDR pixel format code"),
+    ("invalidHeaderPixelFormat", "invalid IHDR pixel format for standard"),
     ("invalidHeaderCompressionMethodCode", "invalid IHDR compression method"),
     ("invalidHeaderFilterCode", "invalid IHDR filter code"),
     ("invalidHeaderInterlacingCode", "invalid IHDR interlacing code"),

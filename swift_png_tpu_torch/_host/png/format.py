@@ -1,9 +1,14 @@
-"""The 15 standard pixel formats (copy of ``Pixel``/``recognize_pixel``
-from ``swift_png_tpu/png/format.py``)."""
+"""The two standards and the 15 standard pixel formats (copies of
+``COMMON``, ``IOS``, ``Pixel`` and ``recognize_pixel`` from
+``swift_png_tpu/png/format.py``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+# standards: an iOS (CgBI) file carries the CgBI chunk before IHDR
+COMMON = "common"
+IOS = "ios"
 
 
 @dataclass(frozen=True)

@@ -6,7 +6,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from .errors import ParsingError
-from .format import Pixel, recognize_pixel
+from .format import COMMON, IOS, Pixel, recognize_pixel
 
 
 def _u16(data: bytes, at: int) -> int:
@@ -26,15 +26,18 @@ class Header:
     interlaced: bool
 
     @classmethod
-    def parse(cls, data: bytes) -> "Header":
-        """A standard (non-iOS) IHDR: indexed decode declines CgBI files
-        before their header is read."""
+    def parse(cls, data: bytes, standard: str = COMMON) -> "Header":
+        """IHDR under ``standard``: an iOS (CgBI) header allows only rgb8
+        and rgba8."""
         if len(data) != 13:
             raise ParsingError.invalidHeaderChunkLength(length=len(data))
         pixel = recognize_pixel((data[8], data[9]))
         if pixel is None:
             raise ParsingError.invalidHeaderPixelFormatCode(
                 code=(data[8], data[9]))
+        if standard == IOS and pixel.name not in ("rgb8", "rgba8"):
+            raise ParsingError.invalidHeaderPixelFormat(
+                pixel=pixel.name, standard=standard)
         if data[10] != 0:
             raise ParsingError.invalidHeaderCompressionMethodCode(
                 code=data[10])

@@ -5,8 +5,8 @@ Counterpart of ``samples_from_rows``, ``rescale``, ``samples_to_rgba`` and
 atoms, MSB-first sub-byte samples, exact depth rescale, per-image palette
 dereference and chroma keys; and ``pack_rows``, the encoder's way back
 from samples to scanline bytes.  Every function here takes a leading batch
-axis (the JAX versions are per image and vmapped by their caller).  The
-iOS BGR layouts belong to the CgBI path, which indexed decode declines.
+axis (the JAX versions are per image and vmapped by their caller).
+``is_bgr`` reads the iOS (CgBI) byte order, bgr8 and bgra8.
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ __all__ = ["samples_from_rows", "rescale", "samples_to_rgba", "unpack_rgba",
 
 def quantum(source_depth: int, dest_bits: int) -> int:
     return ((1 << dest_bits) - 1) // ((1 << source_depth) - 1)
+
+
+_BGRA = [2, 1, 0, 3]
 
 
 def _dtype(bits: int) -> torch.dtype:
@@ -59,14 +62,15 @@ def rescale(samples: torch.Tensor, source_depth: int,
 
 
 def samples_to_rgba(raw: torch.Tensor, *, depth: int, channels: int,
-                    is_indexed: bool = False, has_key: bool = False,
+                    is_bgr: bool = False, is_indexed: bool = False,
+                    has_key: bool = False,
                     palette: torch.Tensor | None = None,
                     key: torch.Tensor | None = None,
                     bits: int = 8) -> torch.Tensor:
     """Raw samples ``(B, H, W, C)`` int32 → ``(B, H, W, 4)`` RGBA at
     ``bits``.  ``palette``: ``(B, n, 4)`` 8-bit entries with alpha folded
     in; ``key``: ``(B, channels)`` raw-depth chroma keys (−1 never
-    matches)."""
+    matches), compared in the file's channel order."""
     tmax = (1 << bits) - 1
     B, H, W = raw.shape[:3]
     if is_indexed:
@@ -91,9 +95,10 @@ def samples_to_rgba(raw: torch.Tensor, *, depth: int, channels: int,
         if has_key:
             hit = (raw == key[:, None, None, :]).all(-1)
             alpha = torch.where(hit, 0, tmax)
-        out = torch.cat([scaled, alpha[..., None]], dim=-1)
+        rgb = scaled.flip(-1) if is_bgr else scaled
+        out = torch.cat([rgb, alpha[..., None]], dim=-1)
     else:
-        out = scaled
+        out = scaled[..., _BGRA] if is_bgr else scaled
     return out.to(_dtype(bits))
 
 
@@ -122,16 +127,19 @@ def pack_rows(samples: torch.Tensor, depth: int, channels: int,
 
 
 def unpack_rgba(rows: torch.Tensor, *, depth: int, channels: int,
-                width: int, is_indexed: bool = False, has_key: bool = False,
-                palette: torch.Tensor | None = None,
+                width: int, is_bgr: bool = False, is_indexed: bool = False,
+                has_key: bool = False, palette: torch.Tensor | None = None,
                 key: torch.Tensor | None = None,
                 bits: int = 8) -> torch.Tensor:
     """Defiltered rows ``(B, H, pitch)`` → ``(B, H, width, 4)`` RGBA."""
     if (depth == 8 and bits == 8 and channels == 4 and not is_indexed
             and not has_key):
+        # rgba8/bgra8: a reshape, and a channel swizzle for bgra8
         B, H = rows.shape[:2]
-        return rows[:, :, : width * 4].reshape(B, H, width, 4)
+        px = rows[:, :, : width * 4].reshape(B, H, width, 4)
+        return px[..., _BGRA] if is_bgr else px
     raw = samples_from_rows(rows, depth, channels, width)
     return samples_to_rgba(raw, depth=depth, channels=channels,
-                           is_indexed=is_indexed, has_key=has_key,
-                           palette=palette, key=key, bits=bits)
+                           is_bgr=is_bgr, is_indexed=is_indexed,
+                           has_key=has_key, palette=palette, key=key,
+                           bits=bits)

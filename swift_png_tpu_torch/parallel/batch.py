@@ -1,13 +1,17 @@
 """Batched PNG decode and encode on the GPU.
 
 Counterpart of ``decode_indexed``, ``decode_stage``,
-``_palette_key_arrays``, ``encode_stage`` and ``BatchCodec.encode`` in
-``swift_png_tpu/parallel/batch.py``.  Decode lexes each PNG, reads its
-``spIx`` checkpoint chunk, inflates the whole batch with the
+``_palette_key_arrays``, ``_fused_engine``, ``encode_stage`` and
+``BatchCodec.decode``/``decode_filtered``/``encode`` in
+``swift_png_tpu/parallel/batch.py``.  Indexed decode lexes each PNG, reads
+its ``spIx`` checkpoint chunk, inflates the whole batch with the
 checkpoint-parallel kernel, then defilters (K3) and convolves to RGBA.
-Encode packs and filters every scanline of the batch on the device, then
-deflates the batch with the level 8–13 optimal parse (K4, K5, K6) or the
-native library's deflate, and writes the containers on the host.
+General decode (any PNG, interlaced and iOS files too) inflates each image
+with the fused inflate, then defilters (K3, once per Adam7 pass for
+interlaced files) and convolves.  Encode packs and filters every scanline
+of the batch on the device, then deflates the batch with the level 8–13
+optimal parse (K4, K5, K6) or the native library's deflate, and writes the
+containers on the host.
 """
 
 from __future__ import annotations
@@ -17,34 +21,50 @@ import torch
 
 from .._host import native as _native
 from .._host.lz77.index import CheckpointIndex, build_index
+from .._host.lz77.inflate import Inflator
 from .._host.png import chunk as chunks
 from .._host.png import parsing
-from .._host.png.format import recognize_pixel
+from .._host.png.format import COMMON, IOS, recognize_pixel
 from .._host.png.image import write_pre_idat
 from .._kernels import resolve_device
 from ..ops import convolve
 from ..ops.deflate_optimal import batch_layout, deflate_device_optimal_batch
+from ..ops.deinterlace import deinterlace_samples, pass_geometry
 from ..ops.filter import filter_select_batch
 from ..ops.inflate_checkpoint import CheckpointInflator
+from ..ops.inflate_fused import InflateFused
 from ..ops.unfilter import defilter_batch
 
-__all__ = ["decode_indexed", "decode_stage", "parse_indexed",
+__all__ = ["decode_indexed", "decode_stage", "lex_png", "parse_indexed",
            "encode_stage", "BatchCodec"]
 
 
+_FUSED: dict = {}
+
+
+def _fused_engine(device: torch.device) -> InflateFused:
+    """The fused inflate engine of ``device`` (one per device)."""
+    eng = _FUSED.get(device)
+    if eng is None:
+        eng = _FUSED[device] = InflateFused(device=device)
+    return eng
+
+
 def decode_stage(filtered: torch.Tensor, *, delay: int, depth: int,
-                 channels: int, width: int, is_indexed: bool = False,
-                 has_key: bool = False, palette: torch.Tensor | None = None,
+                 channels: int, width: int, is_bgr: bool = False,
+                 is_indexed: bool = False, has_key: bool = False,
+                 palette: torch.Tensor | None = None,
                  key: torch.Tensor | None = None,
                  bits: int = 8) -> torch.Tensor:
     """``(B, H, 1+pitch)`` filtered scanlines → ``(B, H, W, 4)`` RGBA on
     the input's device.  ``palette``/``key`` are per image: ``(B, 256, 4)``
-    and ``(B, channels)`` (a key of −1 never matches)."""
+    and ``(B, channels)`` (a key of −1 never matches); ``is_bgr`` reads
+    the iOS byte order."""
     rows = defilter_batch(filtered, delay)
     return convolve.unpack_rgba(rows, depth=depth, channels=channels,
-                                width=width, is_indexed=is_indexed,
-                                has_key=has_key, palette=palette, key=key,
-                                bits=bits)
+                                width=width, is_bgr=is_bgr,
+                                is_indexed=is_indexed, has_key=has_key,
+                                palette=palette, key=key, bits=bits)
 
 
 def _palette_key_arrays(pixel, palettes, transparencies):
@@ -72,6 +92,35 @@ def _palette_key_arrays(pixel, palettes, transparencies):
                 keys[b] = transparency.value
         return None, keys
     return None, None
+
+
+def lex_png(data: bytes):
+    """Lex one PNG for general decode: ``(header, standard, palette,
+    transparency, idat)`` — the iOS standard when a CgBI chunk comes
+    first, and the concatenated IDAT payloads."""
+    stream = chunks.ByteSource(data)
+    stream.signature()
+    type_, payload = stream.chunk()
+    standard = COMMON
+    if type_ == chunks.CgBI:
+        standard = IOS
+        type_, payload = stream.chunk()
+    header = parsing.Header.parse(payload, standard)
+    palette = None
+    transparency = None
+    idat = bytearray()
+    while True:
+        type_, payload = stream.chunk()
+        if type_ == chunks.PLTE:
+            palette = parsing.Palette.parse(payload, header.pixel)
+        elif type_ == chunks.tRNS:
+            transparency = parsing.Transparency.parse(
+                payload, header.pixel, palette)
+        elif type_ == chunks.IDAT:
+            idat += payload
+        elif type_ == chunks.IEND:
+            break
+    return header, standard, palette, transparency, bytes(idat)
 
 
 def parse_indexed(pngs: list[bytes]):
@@ -167,15 +216,119 @@ _KINDS = {"v1": (1, 0), "v2": (2, 0), "v4": (4, 0), "v8": (8, 0),
 
 
 class BatchCodec:
-    """Batch encode of same-shape images on one device.
+    """Batch decode and encode of same-shape images on one device.
 
     ``device``: ``cuda`` unless the caller names another; ``"cpu"`` runs
     the plain PyTorch versions of the kernels.  With no device named and
-    no GPU present this raises.
+    no GPU present this raises.  (The JAX version takes a device mesh; one
+    device serves here.)
     """
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+
+    # -- decode -----------------------------------------------------------
+
+    def decode_filtered(self, images_png: list[bytes],
+                        device_inflate: bool = True,
+                        keep_on_device: bool = False):
+        """Inflate each PNG into its filtered scanlines.
+
+        Container lexing is host work; each image's DEFLATE stream is
+        inflated by the fused inflate on the device
+        (:mod:`swift_png_tpu_torch.ops.inflate_fused`), one image at a
+        time, unless ``device_inflate=False`` selects the host engine.  An
+        iOS file (CgBI chunk first) holds raw DEFLATE.
+
+        Returns ``(B, H, 1+pitch)`` uint8 (``(B, nbytes)``, the flat pass
+        streams, for interlaced files) — numpy, or a tensor on the device
+        with ``keep_on_device`` — and the shared format info dict.  All
+        images must agree on size and pixel format (``ValueError``).
+        """
+        batch = []
+        info = None
+        for data in images_png:
+            header, standard, palette, transparency, idat = lex_png(data)
+            W, H = header.size
+            volume = header.pixel.volume
+            if header.interlaced:
+                _, nbytes = pass_geometry((W, H), volume)
+                shape = None  # flat interlaced stream
+            else:
+                pitch = (W * volume + 7) >> 3
+                nbytes = H * (pitch + 1)
+                shape = (H, pitch + 1)
+            fmt = "ios" if standard == IOS else "zlib"
+            if device_inflate:
+                raw = _fused_engine(self.device).inflate(
+                    idat, nbytes, fmt, keep_on_device=keep_on_device)
+            else:
+                inflator = Inflator(fmt)
+                inflator.push(idat)
+                pulled = inflator.pull(nbytes)
+                if pulled is None:
+                    raise ValueError("truncated image data")
+                raw = np.frombuffer(pulled, np.uint8)
+            batch.append(raw.reshape(shape) if shape else raw)
+            this = dict(size=(W, H), pixel=header.pixel, palette=palette,
+                        transparency=transparency, standard=standard,
+                        interlaced=header.interlaced)
+            if info is None:
+                info = dict(this)
+                info["palettes"] = []
+                info["transparencies"] = []
+            elif (info["size"], info["pixel"].name) != (this["size"],
+                                                        this["pixel"].name):
+                raise ValueError("batch images must share size and format")
+            # palettes and chroma keys are per-image even within one bucket
+            info["palettes"].append(palette)
+            info["transparencies"].append(transparency)
+        if not keep_on_device:
+            return np.stack(batch), info
+        if device_inflate:
+            return torch.stack(batch), info
+        return torch.from_numpy(np.stack(batch)).to(self.device), info
+
+    def decode(self, images_png: list[bytes], bits: int = 8,
+               device_inflate: bool = True, keep_on_device: bool = False):
+        """Full batch decode of any PNGs of one size and pixel format to
+        ``(B, H, W, 4)`` RGBA pixels at ``bits`` = 8 (uint8) or 16
+        (uint16): numpy, or a tensor on the device with
+        ``keep_on_device``.
+
+        Every standard format (gray, gray-alpha, rgb, rgba at 1–16 bits,
+        palettes with per-image PLTE/tRNS, chroma keys), Adam7 interlacing
+        (K3 once per pass) and iOS (CgBI) files with their bgr byte order.
+        The filtered scanlines stay on the device between the inflate and
+        the defilter.
+        """
+        filtered, info = self.decode_filtered(images_png, device_inflate,
+                                              keep_on_device=True)
+        W, H = info["size"]
+        pixel = info["pixel"]
+        pal, key = _palette_key_arrays(pixel, info["palettes"],
+                                       info["transparencies"])
+        pal = None if pal is None else torch.from_numpy(pal).to(self.device)
+        key = None if key is None else torch.from_numpy(key).to(self.device)
+        # CgBI streams store bgr8/bgra8 byte order
+        is_bgr = info["standard"] == IOS and pixel.channels >= 3
+        if info["interlaced"]:
+            samples = deinterlace_samples(filtered, size=(W, H),
+                                          depth=pixel.depth,
+                                          channels=pixel.channels)
+            out = convolve.samples_to_rgba(
+                samples, depth=pixel.depth, channels=pixel.channels,
+                is_bgr=is_bgr, is_indexed=pixel.is_indexed,
+                has_key=key is not None, palette=pal, key=key, bits=bits)
+        else:
+            out = decode_stage(
+                filtered, delay=(pixel.volume + 7) >> 3, depth=pixel.depth,
+                channels=pixel.channels, width=W, is_bgr=is_bgr,
+                is_indexed=pixel.is_indexed, has_key=key is not None,
+                palette=pal, key=key, bits=bits)
+        return out if keep_on_device else out.cpu().numpy()
+
+    # -- encode -----------------------------------------------------------
 
     def encode(self, pixels, level: int = 9, bits: int = 8,
                kind: str | None = None, palette: tuple | None = None,

@@ -16,6 +16,9 @@ from swift_png_tpu_torch._host.lz77.index import build_index
 from swift_png_tpu_torch.ops import deflate_optimal as tdo
 from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_cuda,
                                                   emit_terms_reference)
+from swift_png_tpu_torch.ops.deinterlace import (deinterlace_samples,
+                                                 pass_geometry)
+from swift_png_tpu_torch.ops.inflate_fused import inflate_fused_batch
 from swift_png_tpu_torch.ops.inflate_checkpoint import CheckpointInflator
 from swift_png_tpu_torch.ops.inflate_seqcopy import (records_well_formed,
                                                      seqcopy_cuda,
@@ -441,3 +444,76 @@ def test_device_parse_with_native_sampling_matches_plain(cuda):
     assert got == tdo.deflate_device_optimal_batch(datas, level=9,
                                                    pitch=257, device="cpu")
     assert [zlib.decompress(s) for s in got] == datas
+
+
+def _general_batch(config, n=3, h=37, w=29):
+    rng = np.random.default_rng(5)
+    px = rng.integers(0, 256, (n, h, w, 4), dtype=np.uint8)
+    return px, [chip_smoke.general_png(p, config, hint=999) for p in px]
+
+
+@pytest.mark.parametrize("config", chip_smoke.GD_CONFIGS)
+def test_general_decode_on_card_matches_cpu(cuda, config):
+    """``BatchCodec().decode`` of ordinary rgba8, Adam7 and CgBI PNGs on the
+    card: its intermediates on the card, K3 once per image shape or Adam7
+    pass, pixels equal to the CPU port's and to the source."""
+    px, pngs = _general_batch(config)
+    codec = BatchCodec()
+    assert codec.device.type == "cuda"
+    flat, info = codec.decode_filtered(pngs, keep_on_device=True)
+    assert flat.device.type == "cuda"
+    passes = pass_geometry(info["size"], 32)[0]
+    _kernels.reset_launches()
+    out = codec.decode(pngs, keep_on_device=True)
+    assert out.device.type == "cuda"
+    assert _kernels.launch_counts()["defilter"] == (
+        len(passes) if config == "adam7" else 1)
+    assert torch.equal(out.cpu(), torch.from_numpy(px))
+    cpu = BatchCodec(device="cpu").decode(pngs)
+    assert np.array_equal(out.cpu().numpy(), cpu)
+    host = codec.decode(pngs, bits=16, device_inflate=False)
+    assert np.array_equal(host, BatchCodec(device="cpu").decode(pngs,
+                                                                bits=16))
+
+
+def test_inflate_fused_on_card_matches_cpu(cuda):
+    """The fused inflate's every field on the card and on the CPU, on valid
+    streams and seeded corruptions in one lockstep batch."""
+    rng = np.random.default_rng(9)
+    data = bytes(rng.integers(0, 16, 20000, dtype=np.uint8))
+    body = zlib.compress(data, 6)[2:]
+    n = 1 << 16
+    Ds = np.zeros((12, n), np.uint8)
+    for i in range(12):
+        Ds[i, :len(body)] = np.frombuffer(body, np.uint8)
+        if i >= 2:
+            bit = int(rng.integers(0, 8 * len(body)))
+            Ds[i, bit >> 3] ^= 1 << (bit & 7)
+        if i >= 8:
+            Ds[i, len(body):] = rng.integers(0, 256, n - len(body))
+    kw = dict(out_size=len(data), win_words=1 << 14, t_max=1 << 15,
+              max_blocks=1 << 14, tok_cap=len(data) + 1)
+    got = inflate_fused_batch(torch.from_numpy(Ds).to(cuda), **kw)
+    want = inflate_fused_batch(torch.from_numpy(Ds), **kw)
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0].cpu(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g, w)
+    assert got[1][0] == 0 and bytes(got[0][0, :len(data)].cpu()) == data
+
+
+@pytest.mark.parametrize("size", [(1, 1), (3, 5), (9, 17), (33, 31)])
+@pytest.mark.parametrize("depth,channels", [(1, 1), (8, 3), (16, 4), (8, 2)])
+def test_deinterlace_on_card_matches_cpu(cuda, size, depth, channels):
+    """Adam7 passes through K3 at heights and widths down to 1 and pitches
+    off multiples of 16."""
+    passes, total = pass_geometry(size, depth * channels)
+    flat = np.random.default_rng(depth + size[0]).integers(
+        0, 256, (3, total), dtype=np.uint8)
+    _kernels.reset_launches()
+    got = deinterlace_samples(torch.from_numpy(flat).to(cuda), size=size,
+                              depth=depth, channels=channels)
+    assert _kernels.launch_counts()["defilter"] == len(passes)
+    want = deinterlace_samples(torch.from_numpy(flat), size=size,
+                               depth=depth, channels=channels)
+    assert torch.equal(got.cpu(), want)
