@@ -28,7 +28,17 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
   the convolve), with the lockstep ``InflateFusedBatch`` timed beside it;
 * the level-9 encode (``BatchCodec.encode``, strict size policy) of
   photographic and smooth images, read back through
-  :func:`decode_indexed` (K4, K5, K6; K1, K3 or K2).
+  :func:`decode_indexed` (K4, K5, K6; K1, K3 or K2);
+* the rest of the encode (``encode_general``): the bench images Adam7
+  interlaced at level 9 (K4, K5, K6 on the concatenated pass streams),
+  quantised to indexed8 with a palette of 256 entries per image at level 9
+  with ``index=True`` (1-byte rows), and with one shared tree set at level
+  6 (the greedy search as torch ops, K6 in one launch for the batch); every
+  stream inflates through ``zlib`` to the port's filtered bytes, four
+  images of each come back exact through ``BatchCodec.decode`` (all 32
+  indexed8 ones through :func:`decode_indexed` too), and each kernel is
+  held against its plain version at these shapes; then a bgra8 batch with
+  gAMA, pHYs, iCCP, compressed iTXt and tIME chunks (``encode_metadata``).
 
 It builds the port's native host library (``swift_png_tpu_torch/_host/
 native``, ``g++``) beside the kernels and fails when the library is not
@@ -809,35 +819,96 @@ def encode_plan(dev, px: np.ndarray):
     """Filter ``px`` on the card and stage the batch as ``BatchCodec.encode``
     does: ``(filtered (B, n) on the card, datas, plan)``."""
     from swift_png_tpu_torch.ops import convolve
-    from swift_png_tpu_torch.ops import deflate_optimal as tdo
     from swift_png_tpu_torch.parallel.batch import encode_stage
 
     b, h, w, _ = px.shape
     samples = torch.from_numpy(px).to(dev, torch.int32)
     filtered = encode_stage(convolve.pack_rows(samples, 8, 4, w), 4
                             ).reshape(b, -1)
+    return (filtered, *stage_plan(dev, filtered, w * 4 + 1, 4))
+
+
+def stage_plan(dev, filtered: torch.Tensor, pitch: int, bpp: int):
+    """``BatchCodec.encode``'s staging of filtered bytes ``(B, n)`` on the
+    card for the optimal parse: ``(datas, plan)``."""
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+
+    b, n = filtered.shape
     flat = filtered.cpu().numpy()
     datas = [flat[i].tobytes() for i in range(b)]
-    stride = tdo.batch_layout([flat.shape[1]] * b)[0]
-    dbuf = torch.nn.functional.pad(filtered, (0, stride - flat.shape[1]))
-    return filtered, datas, tdo._batch_inputs(datas, 4, w * 4 + 1, dev,
-                                              dbuf.reshape(-1))
+    stride = tdo.batch_layout([n] * b)[0]
+    dbuf = torch.nn.functional.pad(filtered, (0, stride - n))
+    return datas, tdo._batch_inputs(datas, bpp, pitch, dev, dbuf.reshape(-1))
 
 
-def encode_kernel_checks(dev, config: str, px: np.ndarray,
-                         timed: bool = False) -> dict:
+def optimal_stages(dev, datas: list, plan: dict, pitch: int, bpp: int,
+                   level: int = ENC_LEVEL):
+    """The optimal parse's stages after filtering, one by one, best of
+    ``ENC_REPS`` each: ``(stage ms, info)``; ``info["assembly"]`` builds
+    the device parse's streams."""
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+    from swift_png_tpu_torch.ops.deflate_emit import emit_terms_batch
+
+    st = {}
+    dbuf = plan["dbuf"]
+    st["plan"] = host_ms(lambda: tdo._batch_inputs(datas, bpp, pitch, dev,
+                                                   dbuf), ENC_REPS)
+    cargs = (plan["dists2"], plan["decades2"], dbuf, plan["nvec"])
+    ckw = dict(dmax=plan["dmax"], stride=plan["stride"])
+    st["k4"] = host_ms(lambda: tdo.menu_candidates_batch(*cargs, **ckw),
+                       ENC_REPS)
+    cand = tdo.menu_candidates_batch(*cargs, **ckw)
+    dep, run, dde, iters = tdo._initial_tables(plan, level)
+    for it in range(iters):
+        tabs = (dep, run, dde)
+        st[f"k5_iter{it + 1}"] = host_ms(lambda: tdo.optimal_parse(
+            dbuf, plan["clen"], cand, *tabs, tpi=plan["TPI"]), ENC_REPS)
+        terms, valid, hist = tdo.optimal_parse(dbuf, plan["clen"], cand,
+                                               *tabs, tpi=plan["TPI"])
+        if it + 1 < iters:
+            st[f"depths_refresh{it + 1}"] = host_ms(
+                lambda: tdo._device_depths_update(hist, *tabs), ENC_REPS)
+            dep, run, dde = tdo._device_depths_update(hist, *tabs)
+    st["hist_fetch_trees"] = host_ms(lambda: tdo._host_trees(
+        hist.cpu().numpy().astype(np.int64)), ENC_REPS)
+    freqs = hist.cpu().numpy().astype(np.int64)
+    trees, etabs, spans = tdo._host_trees(freqs)
+    route, e_terms, _, per_image = tdo.emit_input(terms, valid, freqs,
+                                                  plan["TPI"])
+    etabs_d = torch.from_numpy(etabs).to(dev)
+    st["k6"] = host_ms(lambda: emit_terms_batch(e_terms, etabs_d, per_image),
+                       ENC_REPS)
+    # K6 again, with the route's compaction and the scatter pack
+    pack = lambda: tdo._emit_pack(terms, valid, freqs, etabs, spans,
+                                  plan["TPI"])
+    st["pack"] = host_ms(pack, ENC_REPS)
+    atoms_list, totals = pack()
+    st["fetch"] = host_ms(lambda: tdo._fetch_bodies(atoms_list, totals),
+                          ENC_REPS)
+    bodies = tdo._fetch_bodies(atoms_list, totals)
+    asm = lambda: [tdo._zlib_stream(d, t, *bd)
+                   for d, t, bd in zip(datas, trees, bodies)]
+    st["assembly"] = host_ms(asm, ENC_REPS)
+    return st, dict(route=route, slots=per_image, iters=iters, assembly=asm)
+
+
+def encode_kernel_checks(dev, config: str, px: np.ndarray | None,
+                         timed: bool = False, plan: dict | None = None,
+                         level: int = ENC_LEVEL) -> dict:
     """K4, K5 (first-iteration tables) and K6 (on the batch's pack route)
-    against their plain versions on the card; with ``timed``, their device
-    times and this input's bytes and operations too."""
+    against their plain versions on the card, on the rgba8 images ``px``
+    or an already staged ``plan``; with ``timed``, their device times and
+    this input's bytes and operations too."""
     from swift_png_tpu_torch.ops import deflate_optimal as tdo
     from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_cuda,
                                                       emit_terms_reference)
 
-    _, _, plan = encode_plan(dev, px)
+    if plan is None:
+        _, _, plan = encode_plan(dev, px)
     cargs = (plan["dists2"], plan["decades2"], plan["dbuf"], plan["nvec"])
     ckw = dict(dmax=plan["dmax"], stride=plan["stride"])
     cand = tdo.menu_candidates_cuda(*cargs, **ckw)
-    tables = tdo._initial_tables(plan, ENC_LEVEL)[:3]
+    tables = tdo._initial_tables(plan, level)[:3]
     torch.cuda.synchronize()
     k4_err = max_abs([(cand, tdo.menu_candidates_reference(*cargs, **ckw))])
     dargs = (plan["dbuf"], plan["clen"], cand, *tables)
@@ -855,14 +926,16 @@ def encode_kernel_checks(dev, config: str, px: np.ndarray,
     torch.cuda.synchronize()
     k6_err = max_abs(zip(e_got, emit_terms_reference(e_terms, tabs_d,
                                                      per_image)))
-    out = dict(config=config, images=list(px.shape[:3]), route=route,
+    images = (list(px.shape[:3]) if px is not None
+              else [plan["B"], max(plan["ns"])])
+    out = dict(config=config, images=images, route=route,
                dmax=plan["dmax"], k4_max_abs_err=k4_err,
                k5_max_abs_err=k5_err, k6_max_abs_err=k6_err,
                terms=int(valid.sum()), match_terms=int(freqs[:, 257:286].sum()))
     emit(phase="encode_kernel_check", **out)
     if k4_err or k5_err or k6_err:
         fail(f"an encode kernel differs from its plain version on {config} "
-             f"{list(px.shape[:3])}")
+             f"{images}")
     if not timed:
         return out
     ntot, b = plan["Ntot"], plan["B"]
@@ -1090,7 +1163,6 @@ def encode_path(dev, config: str) -> dict:
                                                       build_index)
     from swift_png_tpu_torch.ops import convolve
     from swift_png_tpu_torch.ops import deflate_optimal as tdo
-    from swift_png_tpu_torch.ops.deflate_emit import emit_terms_batch
     from swift_png_tpu_torch.parallel.batch import encode_stage
 
     px = encode_images(config, B, H, W)
@@ -1122,50 +1194,14 @@ def encode_path(dev, config: str) -> dict:
         fail(f"encode_{config}: decoded pixels differ from the source")
 
     # the stages one by one, on the same batch
-    st = {}
     samples = torch.from_numpy(px).to(dev, torch.int32)
-    st["filter"] = host_ms(lambda: encode_stage(
-        convolve.pack_rows(samples, 8, 4, W), 4), ENC_REPS)
-    st["fetch_filtered"] = host_ms(lambda: filtered.cpu().numpy(), ENC_REPS)
-    dbuf = plan["dbuf"]
-    st["plan"] = host_ms(lambda: tdo._batch_inputs(datas, 4, W * 4 + 1, dev,
-                                                   dbuf), ENC_REPS)
-    cargs = (plan["dists2"], plan["decades2"], dbuf, plan["nvec"])
-    ckw = dict(dmax=plan["dmax"], stride=plan["stride"])
-    st["k4"] = host_ms(lambda: tdo.menu_candidates_batch(*cargs, **ckw),
-                       ENC_REPS)
-    cand = tdo.menu_candidates_batch(*cargs, **ckw)
-    dep, run, dde, iters = tdo._initial_tables(plan, ENC_LEVEL)
-    for it in range(iters):
-        tabs = (dep, run, dde)
-        st[f"k5_iter{it + 1}"] = host_ms(lambda: tdo.optimal_parse(
-            dbuf, plan["clen"], cand, *tabs, tpi=plan["TPI"]), ENC_REPS)
-        terms, valid, hist = tdo.optimal_parse(dbuf, plan["clen"], cand,
-                                               *tabs, tpi=plan["TPI"])
-        if it + 1 < iters:
-            st[f"depths_refresh{it + 1}"] = host_ms(
-                lambda: tdo._device_depths_update(hist, *tabs), ENC_REPS)
-            dep, run, dde = tdo._device_depths_update(hist, *tabs)
-    st["hist_fetch_trees"] = host_ms(lambda: tdo._host_trees(
-        hist.cpu().numpy().astype(np.int64)), ENC_REPS)
-    freqs = hist.cpu().numpy().astype(np.int64)
-    trees, etabs, spans = tdo._host_trees(freqs)
-    route, e_terms, _, per_image = tdo.emit_input(terms, valid, freqs,
-                                                  plan["TPI"])
-    etabs_d = torch.from_numpy(etabs).to(dev)
-    st["k6"] = host_ms(lambda: emit_terms_batch(e_terms, etabs_d, per_image),
-                       ENC_REPS)
-    # K6 again, with the route's compaction and the scatter pack
-    pack = lambda: tdo._emit_pack(terms, valid, freqs, etabs, spans,
-                                  plan["TPI"])
-    st["pack"] = host_ms(pack, ENC_REPS)
-    atoms_list, totals = pack()
-    st["fetch"] = host_ms(lambda: tdo._fetch_bodies(atoms_list, totals),
-                          ENC_REPS)
-    bodies = tdo._fetch_bodies(atoms_list, totals)
-    asm = lambda: [tdo._zlib_stream(d, t, *bd)
-                   for d, t, bd in zip(datas, trees, bodies)]
-    st["assembly"] = host_ms(asm, ENC_REPS)
+    st = {"filter": host_ms(lambda: encode_stage(
+        convolve.pack_rows(samples, 8, 4, W), 4), ENC_REPS),
+        "fetch_filtered": host_ms(lambda: filtered.cpu().numpy(), ENC_REPS)}
+    more, info = optimal_stages(dev, datas, plan, W * 4 + 1, 4)
+    st.update(more)
+    route, per_image, iters = info["route"], info["slots"], info["iters"]
+    asm = info["assembly"]
     # the strict size policy ships a native stream where it is smaller
     # than the device parse's by its rule; every other stream is the
     # device parse's
@@ -1203,6 +1239,284 @@ def encode_path(dev, config: str) -> dict:
          ratio_vs_zlib9=sum(sizes) / sum(zsizes), streams_inflate=True,
          pixels_equal=True)
     return launches
+
+
+# ---- the rest of batched encode: Adam7, indexed, shared trees, metadata ---
+
+EG_CONFIGS = ("adam7", "indexed8", "shared")
+EG_DECODED = 4          # images of each run read back through decode
+SHARED_LEVEL = 6
+
+
+def indexed_images(b: int, h: int, w: int):
+    """``b`` bench images quantised to 256 colours (r>>5, g>>5, b>>6), each
+    image's colours under its own seeded permutation of the palette, a
+    seventh of the entries with alpha below 255 (so ``tRNS`` is written):
+    ``(indices (b, h, w) uint8, [palette of 256 RGBA tuples])``."""
+    idx, pals = [], []
+    for seed in range(b):
+        px = bench_image(seed, h, w).astype(np.int64)
+        q = ((px[..., 0] >> 5) << 5) | ((px[..., 1] >> 5) << 2) | (
+            px[..., 2] >> 6)
+        perm = np.random.default_rng(1000 + seed).permutation(256)
+        idx.append(perm[q].astype(np.uint8))
+        pal = [None] * 256
+        for c in range(256):
+            alpha = 255 if c % 7 else 64 + (c * 5) % 128
+            pal[perm[c]] = ((c >> 5) << 5, ((c >> 2) & 7) << 5,
+                            (c & 3) << 6, alpha)
+        pals.append(tuple(pal))
+    return np.stack(idx), pals
+
+
+def png_chunks(data: bytes) -> list:
+    """``[(type, payload)]`` of one PNG, read with the port's lexer."""
+    from swift_png_tpu_torch._host.png import chunk as chunks
+
+    src = chunks.ByteSource(data)
+    src.signature()
+    out = []
+    while not out or out[-1][0] != chunks.IEND:
+        out.append(src.chunk())
+    return out
+
+
+def zlib9_sizes(datas: list) -> list:
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(lambda d: len(zlib.compress(d, 9)), datas))
+
+
+def encode_general_path(dev, config: str) -> dict:
+    """``BatchCodec.encode`` of B = 32 × 512×512 images beyond the plain
+    kinds: ``adam7`` (the rgba8 bench images interlaced, level 9),
+    ``indexed8`` (:func:`indexed_images` through ``palettes=``, level 9,
+    ``index=True``) or ``shared`` (the rgba8 bench images, level 6,
+    ``shared_trees=True``).  Every stream inflates (zlib) to the port's
+    filtered bytes, ``EG_DECODED`` images come back exact through
+    ``BatchCodec.decode`` (all 32 through ``decode_indexed`` for
+    ``indexed8``), the run's kernels launched and are held against their
+    plain versions at its shapes; then its stages one by one."""
+    from swift_png_tpu_torch import BatchCodec, _kernels, decode_indexed
+    from swift_png_tpu_torch._host.lz77.index import build_index
+    from swift_png_tpu_torch.ops import deflate_optimal as tdo
+    from swift_png_tpu_torch.ops.deflate import (emit_pack_shared,
+                                                 shared_emit_input)
+    from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_batch,
+                                                      emit_terms_cuda,
+                                                      emit_terms_reference)
+    from swift_png_tpu_torch.parallel.batch import (deflate_shared_trees,
+                                                    filter_batch,
+                                                    shared_tokens,
+                                                    shared_tree)
+
+    t0 = time.perf_counter()
+    interlaced = config == "adam7"
+    if config == "indexed8":
+        src, pals = indexed_images(B, H, W)
+        kw = dict(level=ENC_LEVEL, kind="indexed8", palettes=pals,
+                  index=True)
+        want = np.stack([np.asarray(p, np.uint8)[i]
+                         for i, p in zip(src, pals)])
+        channels = 1
+    else:
+        src = want = encode_images("photographic", B, H, W)
+        kw = (dict(level=ENC_LEVEL, kind="rgba8", interlaced=True)
+              if interlaced else dict(level=SHARED_LEVEL, kind="rgba8",
+                                      shared_trees=True))
+        channels = 4
+    inputs_s = time.perf_counter() - t0
+    codec = BatchCodec(dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    pngs = codec.encode(src, **kw)
+    torch.cuda.synchronize()
+    call_ms = [(time.perf_counter() - t0) * 1e3]
+    launches = _kernels.launch_counts()
+    call_ms += host_ms(lambda: codec.encode(src, **kw), 1)
+    kernels_run = ("emit",) if config == "shared" else ("cand", "dp_parse",
+                                                        "emit")
+    for name in kernels_run:
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on encode_general "
+                 f"{config}")
+    if config == "shared" and launches["emit"] != 1:
+        fail(f"encode_general shared: K6 launched {launches['emit']} "
+             f"times, not once for the batch")
+
+    samples = torch.from_numpy(src).to(dev, torch.int32)
+    if samples.dim() == 3:
+        samples = samples[..., None]
+    filtered = filter_batch(samples, 8, channels, interlaced)
+    flat = filtered.cpu().numpy()
+    datas = [flat[i].tobytes() for i in range(B)]
+    kinds = []
+    streams = []
+    for png in pngs:
+        chunks = png_chunks(png)
+        kinds.append([k for k, _ in chunks if k != "IDAT"])
+        streams.append(b"".join(p for k, p in chunks if k == "IDAT"))
+    for d, s in zip(datas, streams):
+        if zlib.decompress(s) != d:
+            fail(f"encode_general {config}: an IDAT stream does not "
+                 f"inflate to the port's filtered bytes")
+    want_kinds = {"adam7": ["IHDR", "IEND"], "shared": ["IHDR", "IEND"],
+                  "indexed8": ["IHDR", "PLTE", "tRNS", "spIx", "IEND"]}
+    if any(k != want_kinds[config] for k in kinds):
+        fail(f"encode_general {config}: chunks {kinds[0]}")
+    want_t = torch.from_numpy(want).to(dev)
+    _kernels.reset_launches()
+    out = codec.decode(pngs[:EG_DECODED], keep_on_device=True)
+    torch.cuda.synchronize()
+    dec_launches = _kernels.launch_counts()
+    if not torch.equal(out, want_t[:EG_DECODED]):
+        fail(f"encode_general {config}: decoded pixels differ")
+    line = dict(phase="encode_general", config=config, streams=B,
+                level=kw["level"], in_bytes=sum(map(len, datas)),
+                inputs_seconds=inputs_s, call_ms=call_ms,
+                mb_per_s=sum(map(len, datas)) / min(call_ms) / 1e3,
+                launches=launches, decoded_images=EG_DECODED,
+                decode_launches=dec_launches, pixels_equal=True,
+                streams_inflate=True, chunks=kinds[0])
+    if config == "indexed8":
+        _kernels.reset_launches()
+        pixels = decode_indexed(pngs, device=dev)
+        torch.cuda.synchronize()
+        ix_launches = _kernels.launch_counts()
+        for name in ("decode_stamp", "defilter"):
+            if ix_launches[name] < 1:
+                fail(f"kernel {name} was not launched on the indexed8 "
+                     f"read-back")
+        if pixels is None or not torch.equal(pixels, want_t):
+            fail("encode_general indexed8: decode_indexed differs")
+        line["decode_indexed_launches"] = ix_launches
+
+    # the kernels at this run's shapes, and the stages one by one
+    st = {"filter": host_ms(lambda: filter_batch(samples, 8, channels,
+                                                 interlaced), ENC_REPS)}
+    errs = {}
+    if config == "shared":
+        toks = shared_tokens(datas, SHARED_LEVEL, dev)
+        tree, freq = shared_tree(toks)
+        counts = [c for _, c in toks]
+        rows, tabs, _, slots = shared_emit_input([t for t, _ in toks],
+                                                 counts, tree)
+        got = emit_terms_cuda(rows, tabs, slots)
+        torch.cuda.synchronize()
+        errs["k6"] = max_abs(zip(got, emit_terms_reference(rows, tabs,
+                                                           slots)))
+        n_e = rows.numel()
+        k6_bound = bound(n_e * 16 + B * 320 * 4, n_e * K6_OPS_PER_TERM)
+        line["kernel_ms"] = {"k6": dict(
+            ms=cuda_ms(lambda: emit_terms_cuda(rows, tabs, slots), 10),
+            plain_ms=cuda_ms(lambda: emit_terms_reference(rows, tabs,
+                                                          slots), 1),
+            bound_ms=k6_bound[0], bound_by=k6_bound[1])}
+        cpu_two = deflate_shared_trees(datas[:2], SHARED_LEVEL,
+                                       device="cpu")
+        if cpu_two != deflate_shared_trees(datas[:2], SHARED_LEVEL,
+                                           device=dev):
+            fail("encode_general shared: the card's streams of two images "
+                 "differ from the CPU's")
+        st["greedy_search"] = host_ms(
+            lambda: shared_tokens(datas, SHARED_LEVEL, dev), 2)
+        st["trees"] = host_ms(lambda: shared_tree(toks), ENC_REPS)
+        st["k6"] = host_ms(lambda: emit_terms_batch(rows, tabs, slots),
+                           ENC_REPS)
+        pack = lambda: emit_pack_shared([t for t, _ in toks], counts, tree,
+                                        freq)
+        st["pack_and_fetch"] = host_ms(pack, ENC_REPS)
+        bodies = pack()
+        st["assembly"] = host_ms(lambda: [
+            tdo._zlib_stream(d, tree, *bd) for d, bd in zip(datas, bodies)],
+            ENC_REPS)
+        line.update(terms=sum(counts), emit_slots_per_image=slots,
+                    k6_max_abs_err=errs["k6"], cpu_two_images_equal=True)
+    else:
+        delay = channels        # 8-bit samples: a byte a channel
+        # the JAX package's arguments: the full width's pitch for Adam7
+        pitch = W * delay + 1
+        plan = stage_plan(dev, filtered, pitch, delay)[1]
+        chk = encode_kernel_checks(dev, f"general_{config}", None,
+                                   timed=True, plan=plan)
+        errs = {k: chk[f"{k}_max_abs_err"] for k in ("k4", "k5", "k6")}
+        line["kernel_ms"] = {k: dict(
+            ms=chk[f"{k}_ms"], plain_ms=chk[f"{k}_plain_ms"],
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                chk[f"{k}_bytes"], chk[f"{k}_ops"]))))
+            for k in ("k4", "k5", "k6")}
+        more, info = optimal_stages(dev, datas, plan, pitch, delay)
+        st.update(more)
+        # the strict size policy ships a native stream where it is smaller
+        rerouted = [i for i, (a, b) in enumerate(zip(info["assembly"](),
+                                                     streams)) if a != b]
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            st["strict_estimate"] = host_ms(lambda: list(pool.map(
+                lambda d: tdo._strict_estimate(d, ENC_LEVEL), datas)), 1)
+        if config == "indexed8":
+            st["index"] = host_ms(lambda: [
+                build_index(s[2:-4], len(d), 256)
+                for s, d in zip(streams, datas)], 1)
+        line.update(route=info["route"], emit_slots_per_image=info["slots"],
+                    strict_rerouted=rerouted,
+                    dp_iterations=info["iters"],
+                    menu_lengths=[len(m) for m in plan["menus"]], **{
+                        f"{k}_max_abs_err": v for k, v in errs.items()})
+    sizes = [len(s) for s in streams]
+    zsizes = zlib9_sizes(datas)
+    line.update(stage_ms_min={k: min(v) for k, v in st.items()},
+                stage_ms=st, compressed_bytes=[min(sizes), max(sizes)],
+                zlib9_bytes=[min(zsizes), max(zsizes)],
+                ratio_vs_zlib9=sum(sizes) / sum(zsizes))
+    emit(**line)
+    if any(errs.values()):
+        fail(f"encode_general {config}: a kernel differs from its plain "
+             f"version: {errs}")
+    return dict(launches=launches, errs=errs)
+
+
+def encode_metadata_case(dev) -> None:
+    """B = 2 × 64×64 bgra8 with a ``Metadata`` of gAMA, pHYs, iCCP, a
+    compressed iTXt and tIME through ``BatchCodec.encode`` (level 9): the
+    chunks in the reference's order, the iCCP and iTXt bodies inflating
+    (zlib) to their inputs, the stream to the filtered bytes."""
+    from swift_png_tpu_torch import BatchCodec
+    from swift_png_tpu_torch._host.png import parsing
+    from swift_png_tpu_torch._host.png.metadata import Metadata
+    from swift_png_tpu_torch.parallel.batch import filter_batch
+
+    px = np.stack([bench_image(s, 64, 64) for s in range(2)])
+    profile = bytes(range(256)) * 12
+    text = "a compressed international text chunk, " * 20
+    md = Metadata(gamma=parsing.Gamma(45455),
+                  physical_dimensions=parsing.PhysicalDimensions(
+                      (2835, 2835), "meter"),
+                  color_profile=parsing.ColorProfile("sRGB-like", profile),
+                  text=[parsing.Text(True, ("Comment", "Kommentar"), "de",
+                                     text)],
+                  time=parsing.TimeModified(2026, 10, 18, 12, 0, 0))
+    pngs = BatchCodec(dev).encode(px, level=ENC_LEVEL, kind="bgra8",
+                                  metadata=md)
+    samples = torch.from_numpy(px).to(dev, torch.int32)
+    flat = filter_batch(samples, 8, 4).cpu().numpy()
+    order = ["CgBI", "IHDR", "gAMA", "iCCP", "pHYs", "tIME", "iTXt", "IDAT",
+             "IEND"]
+    for i, png in enumerate(pngs):
+        chunks = png_chunks(png)
+        kinds = [k for k, _ in chunks]
+        if kinds != order:
+            fail(f"encode_metadata: chunk order {kinds}")
+        body = dict(chunks)
+        if zlib.decompress(body["iCCP"][len(b"sRGB-like") + 2:]) != profile:
+            fail("encode_metadata: the iCCP profile does not inflate back")
+        head = b"Comment\x00\x01\x00de\x00Kommentar\x00"
+        if (not body["iTXt"].startswith(head) or zlib.decompress(
+                body["iTXt"][len(head):]) != text.encode()):
+            fail("encode_metadata: the iTXt text does not inflate back")
+        if zlib.decompress(body["IDAT"]) != flat[i].tobytes():
+            fail("encode_metadata: the stream does not inflate to the "
+                 "filtered bytes")
+    emit(phase="encode_metadata", images=[2, 64, 64], kind="bgra8",
+         chunks=order, bytes=[len(p) for p in pngs], ok=True)
 
 
 def k1_args(prep: dict) -> tuple:
@@ -1475,7 +1789,7 @@ def inflate_trace(eng, idat: bytes, nbytes: int, fmt: str) -> dict:
 
 
 GD_CONFIGS = ("rgba8", "adam7", "cgbi")
-GD_REPS = 3             # warm timed calls of each general decode batch
+GD_REPS = 1             # warm timed calls of each general decode batch
 
 
 def general_decode_path(dev, config: str) -> dict:
@@ -1841,7 +2155,11 @@ def main() -> int:
                                       encode_images("smooth", B, H, W),
                                       timed=True)
     checks += [enc, enc_smooth]
-    enc_err = {k: max(c[f"{k}_max_abs_err"] for c in checks)
+    general = {config: encode_general_path(dev, config)
+               for config in EG_CONFIGS}
+    encode_metadata_case(dev)
+    enc_err = {k: max([c[f"{k}_max_abs_err"] for c in checks]
+                      + [g["errs"].get(k, 0) for g in general.values()])
                for k in ("k4", "k5", "k6")}
     enc_err["k5"] = max(enc_err["k5"], edge_err)
     enc_err["k4"] = max(enc_err["k4"], k4_edge_err)
@@ -1872,7 +2190,11 @@ def main() -> int:
         encode_kernels.append(dict(
             name=name, route="cuda",
             source=f"swift_png_tpu_torch/csrc/{name}.cu", replaces=line,
-            launches=enc_launches[name], max_abs_err=enc_err[k],
+            launches=enc_launches[name],
+            launches_by_path={"encode_photographic": enc_launches[name],
+                              **{f"encode_general_{c}": g["launches"][name]
+                                 for c, g in general.items()}},
+            max_abs_err=enc_err[k],
             ms=enc[f"{k}_ms"], plain_ms=enc[f"{k}_plain_ms"], bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
 

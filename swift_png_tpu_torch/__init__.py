@@ -9,8 +9,9 @@ Served so far: batched decode of any same-shape PNGs (interlaced and iOS
 files too), :meth:`BatchCodec.decode`; batched decode of indexed PNGs
 (files carrying an ``spIx`` checkpoint chunk), :func:`decode_indexed`;
 batched inflate of complete zlib streams, ``ops.inflate_checkpoint.
-CheckpointInflator.inflate_zlib_batch``; and batched level 8–13 encode of
-non-indexed, non-interlaced images, :meth:`BatchCodec.encode`.
+CheckpointInflator.inflate_zlib_batch``; and batched encode of every
+kind the JAX package writes (palettes, Adam7, metadata chunks, shared
+trees, every level), :meth:`BatchCodec.encode`.
 """
 
 from .parallel.batch import BatchCodec, decode_indexed

@@ -10,12 +10,26 @@ from .errors import LexingError
 
 SIGNATURE = bytes([137, 80, 78, 71, 13, 10, 26, 10])
 
+# the 19 named chunk types
 CgBI = "CgBI"
 IHDR = "IHDR"
 PLTE = "PLTE"
 IDAT = "IDAT"
 IEND = "IEND"
+cHRM = "cHRM"
+gAMA = "gAMA"
+iCCP = "iCCP"
+sBIT = "sBIT"
+sRGB = "sRGB"
+bKGD = "bKGD"
+hIST = "hIST"
 tRNS = "tRNS"
+pHYs = "pHYs"
+sPLT = "sPLT"
+tIME = "tIME"
+iTXt = "iTXt"
+tEXt = "tEXt"
+zTXt = "zTXt"
 # private ancillary chunk carrying the checkpoint decode index
 spIx = "spIx"
 

@@ -1,5 +1,5 @@
-"""PNG lexing and parsing errors (the cases the port's decode can raise,
-copied from ``swift_png_tpu/png/errors.py``)."""
+"""PNG lexing and parsing errors (the lexing cases and every chunk
+model's parsing cases, copied from ``swift_png_tpu/png/errors.py``)."""
 
 from __future__ import annotations
 
@@ -73,5 +73,37 @@ for _name, _msg in [
     ("invalidTransparencyChunkLength", "invalid tRNS chunk length"),
     ("invalidTransparencySample", "tRNS sample exceeds depth range"),
     ("invalidTransparencyCount", "tRNS entry count exceeds palette"),
+    ("invalidBackgroundChunkLength", "invalid bKGD chunk length"),
+    ("invalidBackgroundSample", "bKGD sample exceeds depth range"),
+    ("invalidBackgroundIndex", "bKGD index exceeds palette"),
+    ("invalidHistogramChunkLength", "invalid hIST chunk length"),
+    ("invalidGammaChunkLength", "invalid gAMA chunk length"),
+    ("invalidChromaticityChunkLength", "invalid cHRM chunk length"),
+    ("invalidColorRenderingChunkLength", "invalid sRGB chunk length"),
+    ("invalidColorRenderingCode", "invalid sRGB rendering intent"),
+    ("invalidColorProfileChunkLength", "invalid iCCP chunk length"),
+    ("invalidColorProfileName", "invalid iCCP profile name"),
+    ("invalidColorProfileCompressionMethodCode",
+     "invalid iCCP compression method"),
+    ("incompleteColorProfileCompressedDatastream",
+     "incomplete iCCP datastream"),
+    ("invalidSignificantBitsChunkLength", "invalid sBIT chunk length"),
+    ("invalidSignificantBitsPrecision", "sBIT precision exceeds depth"),
+    ("invalidPhysicalDimensionsChunkLength", "invalid pHYs chunk length"),
+    ("invalidPhysicalDimensionsDensityUnitCode", "invalid pHYs unit code"),
+    ("invalidTimeModifiedChunkLength", "invalid tIME chunk length"),
+    ("invalidTimeModifiedTime", "invalid tIME fields"),
+    ("invalidSuggestedPaletteChunkLength", "invalid sPLT chunk length"),
+    ("invalidSuggestedPaletteName", "invalid sPLT name"),
+    ("invalidSuggestedPaletteDataLength", "invalid sPLT data length"),
+    ("invalidSuggestedPaletteDepthCode", "invalid sPLT depth code"),
+    ("invalidSuggestedPaletteFrequency", "sPLT frequencies not descending"),
+    ("invalidTextChunkLength", "invalid text chunk length"),
+    ("invalidTextEnglishKeyword", "invalid text keyword"),
+    ("invalidTextLocalizedKeyword", "invalid text localized keyword"),
+    ("invalidTextLanguageTag", "invalid text language tag"),
+    ("invalidTextCompressionMethodCode", "invalid text compression method"),
+    ("invalidTextCompressionCode", "invalid text compression flag"),
+    ("incompleteTextCompressedDatastream", "incomplete text datastream"),
 ]:
     setattr(ParsingError, _name, _parsing_case(_name, _msg))

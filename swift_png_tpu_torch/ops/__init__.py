@@ -7,4 +7,5 @@ torch ops (:mod:`.inflate_fused`) and the Adam7 deinterlace
 (:mod:`.deinterlace`); and of level 8–13 encode: filter select
 (:mod:`.filter`), the K4 candidate search and K5 parse with the pipeline
 around them (:mod:`.deflate_optimal`), K6 term emission
-(:mod:`.deflate_emit`) and the packers and block writer (:mod:`.deflate`)."""
+(:mod:`.deflate_emit`) and the packers, the block writer and the greedy
+match search of the shared-trees encode (:mod:`.deflate`)."""

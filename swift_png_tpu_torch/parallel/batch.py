@@ -1,17 +1,19 @@
 """Batched PNG decode and encode on the GPU.
 
 Counterpart of ``decode_indexed``, ``decode_stage``,
-``_palette_key_arrays``, ``_fused_engine``, ``encode_stage`` and
-``BatchCodec.decode``/``decode_filtered``/``encode`` in
-``swift_png_tpu/parallel/batch.py``.  Indexed decode lexes each PNG, reads
-its ``spIx`` checkpoint chunk, inflates the whole batch with the
-checkpoint-parallel kernel, then defilters (K3) and convolves to RGBA.
+``_palette_key_arrays``, ``_fused_engine``, ``encode_stage``,
+``BatchCodec.decode``/``decode_filtered``/``encode`` and
+``deflate_shared_trees`` in ``swift_png_tpu/parallel/batch.py``.  Indexed
+decode lexes each PNG, reads its ``spIx`` checkpoint chunk, inflates the
+whole batch with the checkpoint-parallel kernel, then defilters (K3) and
+convolves to RGBA.
 General decode (any PNG, interlaced and iOS files too) inflates each image
 with the fused inflate, then defilters (K3, once per Adam7 pass for
 interlaced files) and convolves.  Encode packs and filters every scanline
-of the batch on the device, then deflates the batch with the level 8–13
-optimal parse (K4, K5, K6) or the native library's deflate, and writes the
-containers on the host.
+of the batch on the device (each Adam7 pass apart for interlaced images),
+then deflates the batch with the level 8–13 optimal parse (K4, K5, K6),
+the greedy search with one shared tree set (K6), the native library's
+deflate or the host ``Deflator``, and writes the containers on the host.
 """
 
 from __future__ import annotations
@@ -20,23 +22,29 @@ import numpy as np
 import torch
 
 from .._host import native as _native
+from .._host.lz77.deflate import Deflator
+from .._host.lz77.huffman import lengths_from_frequencies
 from .._host.lz77.index import CheckpointIndex, build_index
 from .._host.lz77.inflate import Inflator
 from .._host.png import chunk as chunks
 from .._host.png import parsing
-from .._host.png.format import COMMON, IOS, recognize_pixel
+from .._host.png.format import COMMON, IOS, Format, Layout
 from .._host.png.image import write_pre_idat
+from .._host.png.metadata import Metadata
 from .._kernels import resolve_device
 from ..ops import convolve
-from ..ops.deflate_optimal import batch_layout, deflate_device_optimal_batch
-from ..ops.deinterlace import deinterlace_samples, pass_geometry
+from ..ops.deflate import emit_pack_shared, greedy_tokens, term_frequencies
+from ..ops.deflate_optimal import (_zlib_stream, batch_layout,
+                                   deflate_device_optimal_batch)
+from ..ops.deinterlace import ADAM7, deinterlace_samples, pass_geometry
 from ..ops.filter import filter_select_batch
 from ..ops.inflate_checkpoint import CheckpointInflator
 from ..ops.inflate_fused import InflateFused
 from ..ops.unfilter import defilter_batch
 
 __all__ = ["decode_indexed", "decode_stage", "lex_png", "parse_indexed",
-           "encode_stage", "BatchCodec"]
+           "encode_stage", "filter_batch", "BatchCodec",
+           "deflate_shared_trees"]
 
 
 _FUSED: dict = {}
@@ -209,10 +217,24 @@ def encode_stage(rows: torch.Tensor, delay: int) -> torch.Tensor:
     return filter_select_batch(rows, delay)
 
 
-# the non-indexed standard kinds by name: (depth, color type)
-_KINDS = {"v1": (1, 0), "v2": (2, 0), "v4": (4, 0), "v8": (8, 0),
-          "v16": (16, 0), "va8": (8, 4), "va16": (16, 4), "rgb8": (8, 2),
-          "rgb16": (16, 2), "rgba8": (8, 6), "rgba16": (16, 6)}
+def filter_batch(samples: torch.Tensor, depth: int, channels: int,
+                 interlaced: bool = False) -> torch.Tensor:
+    """Raw samples ``(B, H, W, channels)`` int32 → each image's filtered
+    bytes ``(B, n)`` uint8, on the input's device.  Adam7: each pass's
+    strided subimage is packed and filtered for the whole batch, and the
+    passes lie back to back per image."""
+    B, H, W = samples.shape[:3]
+    delay = max(1, (depth * channels + 7) >> 3)
+    if not interlaced:
+        rows = convolve.pack_rows(samples, depth, channels, W)
+        return encode_stage(rows, delay).reshape(B, -1)
+    parts = []
+    for z, sub_x, _, _, _ in pass_geometry((W, H), depth * channels)[0]:
+        (bx, by), (sx, sy) = ADAM7[z]
+        rows = convolve.pack_rows(samples[:, by::sy, bx::sx], depth,
+                                  channels, sub_x)
+        parts.append(encode_stage(rows, delay).reshape(B, -1))
+    return torch.cat(parts, dim=1)
 
 
 class BatchCodec:
@@ -340,83 +362,134 @@ class BatchCodec:
         bytes as the JAX ``BatchCodec.encode``.
 
         ``pixels``: ``(B, H, W, C)`` samples in the target depth (numpy or
-        torch; sub-byte gray kinds take raw ``depth``-bit samples, ``(B,
-        H, W)`` is read as one channel).  Serves the non-interlaced,
-        non-indexed kinds (v1/2/4/8/16, va8/16, rgb8/16, rgba8/16): filter
-        select on the device, then the deflate, IDAT chunks of ``hint``
-        bytes, an ``spIx`` checkpoint chunk with ``index=True``, IEND.
+        torch); for indexed kinds ``(B, H, W)`` palette indices; for
+        sub-byte gray kinds raw ``depth``-bit samples.  Every non-iOS kind
+        (v1/2/4/8/16, va8/16, rgb8/16, rgba8/16, indexed1/2/4/8) and
+        bgr8/bgra8, which are written as iOS files (CgBI first) over a
+        zlib stream.  ``palette`` (shared) or ``palettes`` (per image)
+        give the palette: RGBA entries for indexed kinds (PLTE, and tRNS
+        with its trailing opaque alphas trimmed), RGB entries (a suggested
+        PLTE) for the others.  ``metadata``: one ``Metadata`` or one per
+        image, written in the reference's chunk order.  ``interlaced``:
+        Adam7, each pass packed and filtered on the device for the whole
+        batch and the passes concatenated per image.  ``index=True`` adds
+        an ``spIx`` checkpoint chunk (not for interlaced images).
 
-        The deflate's route, as in the JAX package: levels 8–13 on a CUDA
-        device take the batched optimal parse (K4, K5, K6) under
-        ``size_policy``.  With the native library, levels <= 7 on any
-        device and levels 8–13 on a CPU device take its one-shot deflate
-        (one block per stream when ``index=True``, which the indexed
-        decoder prefers).  Without it, a CPU device runs the plain
-        versions of the device parse.
-
-        Indexed kinds, palettes, interlacing, metadata, shared trees and,
-        without the native library, levels <= 7 raise
-        ``NotImplementedError``: they are queued in ``ROADMAP.md``
-        (queue 1).
+        The deflate's route, as in the JAX package: ``shared_trees`` pools
+        the batch's symbol statistics into one tree set
+        (:func:`deflate_shared_trees`); levels 8–13 on a CUDA device, or
+        without the native library, take the batched optimal parse (K4,
+        K5, K6) under ``size_policy``; otherwise the native library's
+        one-shot deflate (one block per stream when ``index=True``), or
+        without it the host ``Deflator``.  A failure of the device parse
+        raises (the JAX package falls back to the native deflate there).
         """
         if kind is None:
             kind = "rgba8" if bits == 8 else "rgba16"
-        use_native = _native.available()
-        why = None
-        if kind not in _KINDS:
-            why = f"kind {kind!r} (indexed and iOS kinds)"
-        elif palette is not None or palettes is not None:
-            why = "palettes"
-        elif interlaced:
-            why = "interlaced encode"
-        elif metadata is not None:
-            why = "metadata chunks"
-        elif shared_trees:
-            why = "shared trees"
-        elif level < 8 and not use_native:
-            why = f"level {level} (levels <= 7 without the native library)"
-        if why is not None:
-            raise NotImplementedError(
-                f"BatchCodec.encode: {why} is not ported yet (ROADMAP.md, "
-                f"queue 1: levels <= 7 without the native library and "
-                f"shared trees; interlaced, indexed and metadata encode)")
-        pixel = recognize_pixel(_KINDS[kind])
         x = (pixels if isinstance(pixels, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(pixels)))
         if x.dim() == 3:
             x = x[..., None]
         B, H, W, Cn = x.shape
-        if Cn != pixel.channels:
+        if palettes is None:
+            palettes = [palette] * B
+        if len(palettes) != B:
+            raise ValueError("palettes must have one entry per image")
+        mds = (metadata if isinstance(metadata, (list, tuple))
+               else [metadata] * B)
+        layouts = [Layout(Format(kind, tuple(p) if p else ()), interlaced)
+                   for p in palettes]
+        pixel = layouts[0].format.pixel
+        if pixel.channels != Cn:
             raise ValueError(f"{kind} wants {pixel.channels} channels, "
                              f"got {Cn}")
         delay = max(1, (pixel.volume + 7) >> 3)
         samples = x.to(device=self.device, dtype=torch.int32)
-        rows = convolve.pack_rows(samples, pixel.depth, Cn, W)
-        filtered = encode_stage(rows, delay).reshape(B, -1)
+        filtered = filter_batch(samples, pixel.depth, Cn, interlaced)
         flat_np = filtered.cpu().numpy()
         datas = [flat_np[b].tobytes() for b in range(B)]
-        if level >= 8 and (self.device.type != "cpu" or not use_native):
+
+        use_native = _native.available()
+        idats = None
+        if shared_trees:
+            idats = deflate_shared_trees(datas, level, device=self.device)
+        elif level >= 8 and (self.device.type != "cpu" or not use_native):
             n_flat = filtered.shape[1]
             stride = batch_layout([n_flat] * B)[0]
             dbuf = torch.nn.functional.pad(filtered, (0, stride - n_flat))
+            # the JAX package passes the full width's pitch, interlaced
+            # or not
             idats = deflate_device_optimal_batch(
                 datas, level=level, pitch=W * delay + 1, bpp=delay,
                 device=self.device, dbuf=dbuf.reshape(-1),
                 size_policy=size_policy)
-        else:
-            idats = [_native.deflate(data, level, "zlib",
-                                     block_terms=1 << 22 if index else 0)
-                     for data in datas]
         outs = []
-        for data, idat in zip(datas, idats):
+        for b, data in enumerate(datas):
+            if idats is not None:
+                idat = idats[b]
+            elif use_native:
+                idat = _native.deflate(data, level, "zlib",
+                                       block_terms=1 << 22 if index else 0)
+            else:
+                deflator = Deflator("zlib", level=level)
+                deflator.push(data, last=True)
+                idat = deflator.pull()
             dest = chunks.ByteDestination()
-            write_pre_idat(dest, (W, H), pixel)
+            write_pre_idat(dest, (W, H), layouts[b], mds[b] or Metadata())
             for ofs in range(0, len(idat), hint):
                 dest.format(chunks.IDAT, idat[ofs:ofs + hint])
-            if index:
+            if index and not interlaced:
                 ix = build_index(idat[2:-4], len(data), 256)
                 if ix is not None:
                     dest.format(chunks.spIx, ix.serialize())
             dest.format(chunks.IEND)
             outs.append(dest.getvalue())
         return outs
+
+
+def shared_tokens(payloads: list[bytes], level: int, device) -> list:
+    """Each payload's greedy (lazy at level >= 4) terms over a buffer of
+    ``2^max(12, bits of n)`` bytes on ``device``: ``[(terms, count)]``."""
+    toks = []
+    for data in payloads:
+        n = len(data)
+        N = 1 << max(12, n.bit_length())
+        buf = torch.zeros(N, dtype=torch.uint8)
+        buf[:n] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        terms, _, count = greedy_tokens(buf.to(device), n, t_cap=N,
+                                        lazy=level >= 4)
+        toks.append((terms, count))
+    return toks
+
+
+def shared_tree(toks: list):
+    """One tree set from the pooled symbol statistics of every stream's
+    terms (the end-of-block symbol counted once per stream): ``((lit
+    lengths, dist lengths), freq)``."""
+    freq = np.zeros(320, np.int64)
+    for terms, count in toks:
+        freq += term_frequencies(terms[:count].cpu().numpy(),
+                                 np.ones(count, bool))
+    freq[256] = len(toks)
+    return (lengths_from_frequencies(freq[:286], 15, force=True),
+            lengths_from_frequencies(freq[288:318], 15, force=False)), freq
+
+
+def deflate_shared_trees(payloads: list[bytes], level: int = 6,
+                         device=None) -> list[bytes]:
+    """Batch deflate with ONE tree set for every stream.
+
+    Each payload's tokens come from the greedy match search
+    (:func:`shared_tokens`), their statistics are pooled into one tree set
+    built on the host (:func:`shared_tree`), and every stream's terms are
+    emitted and packed against it, K6 in one launch for the batch
+    (:func:`~swift_png_tpu_torch.ops.deflate.emit_pack_shared`).  Returns
+    one complete single-block zlib stream per payload, computed on
+    ``device`` (``cuda`` unless the caller names another).
+    """
+    toks = shared_tokens(payloads, level, resolve_device(device))
+    tree, freq = shared_tree(toks)
+    bodies = emit_pack_shared([t for t, _ in toks], [c for _, c in toks],
+                              tree, freq)
+    return [_zlib_stream(data, tree, *body)
+            for data, body in zip(payloads, bodies)]

@@ -517,3 +517,59 @@ def test_deinterlace_on_card_matches_cpu(cuda, size, depth, channels):
     want = deinterlace_samples(torch.from_numpy(flat), size=size,
                                depth=depth, channels=channels)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["greedy", "lazy"])
+@pytest.mark.parametrize("short_far", [0, 1024])
+def test_greedy_tokens_on_card_match_cpu(cuda, lazy, short_far):
+    """The greedy match search's terms on the card equal the CPU's (the
+    int64 key sort, the scatter-max, the pointer jumping)."""
+    from swift_png_tpu_torch.ops.deflate import greedy_tokens
+
+    px = chip_smoke.bench_image(4, 64, 96)
+    data = chip_smoke.filter_rows(px.reshape(64, 96 * 4), 4).tobytes()
+    n, N = len(data), 1 << 15
+    buf = torch.zeros(N, dtype=torch.uint8)
+    buf[:n] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    kw = dict(t_cap=N, lazy=lazy, min_run=4 if short_far else 6,
+              short_far=short_far)
+    got = greedy_tokens(buf.to(cuda), n, **kw)
+    want = greedy_tokens(buf, n, **kw)
+    assert got[2] == want[2]
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("case", ["adam7", "indexed8", "shared", "bgra8"])
+def test_encode_general_on_card_matches_cpu(cuda, case, monkeypatch):
+    """``BatchCodec().encode`` beyond the plain kinds on the card: the same
+    PNG bytes as on the CPU (both without the native library), with K4, K5
+    and K6 or, for shared trees, K6 once launched on the card."""
+    from swift_png_tpu_torch._host import native
+    from swift_png_tpu_torch._host.png import parsing
+    from swift_png_tpu_torch._host.png.metadata import Metadata
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    px = np.stack([chip_smoke.bench_image(s, 40, 56) for s in range(2)])
+    kw = dict(level=9, kind="rgba8")
+    if case == "adam7":
+        kw["interlaced"] = True
+    elif case == "indexed8":
+        idx, pals = chip_smoke.indexed_images(2, 40, 56)
+        px = idx
+        kw.update(kind="indexed8", palettes=pals, index=True)
+    elif case == "shared":
+        kw.update(level=6, shared_trees=True)
+    else:
+        kw.update(kind="bgra8", metadata=Metadata(
+            gamma=parsing.Gamma(50000),
+            color_profile=parsing.ColorProfile("p", bytes(300))))
+    _kernels.reset_launches()
+    pngs = BatchCodec().encode(px, **kw)
+    counts = _kernels.launch_counts()
+    if case == "shared":
+        assert counts["emit"] == 1 and counts["cand"] == 0
+    else:
+        assert (counts["cand"], counts["dp_parse"], counts["emit"]) == (
+            1, 4, 1)
+    assert pngs == BatchCodec("cpu").encode(px, **kw)

@@ -441,15 +441,3 @@ def test_batch_encode_one_pixel_stored_stream_matches_jax():
     px = np.ones((2, 1, 1, 1), np.uint8)
     got = BatchCodec("cpu").encode(px, level=9, kind="v1", index=True)
     assert got == JaxBatchCodec().encode(px, level=9, kind="v1", index=True)
-
-
-@pytest.mark.parametrize("kw", [dict(kind="indexed8"), dict(level=6),
-                                dict(interlaced=True),
-                                dict(shared_trees=True),
-                                dict(palette=((1, 2, 3),))],
-                         ids=["indexed", "level6", "interlaced", "shared",
-                              "palette"])
-def test_batch_encode_raises_on_what_is_not_ported(kw):
-    px = np.zeros((1, 4, 4, 4), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchCodec("cpu").encode(px, **kw)
