@@ -38,7 +38,13 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
   images of each come back exact through ``BatchCodec.decode`` (all 32
   indexed8 ones through :func:`decode_indexed` too), and each kernel is
   held against its plain version at these shapes; then a bgra8 batch with
-  gAMA, pHYs, iCCP, compressed iTXt and tIME chunks (``encode_metadata``).
+  gAMA, pHYs, iCCP, compressed iTXt and tIME chunks (``encode_metadata``);
+* the scale-out layer (``scale_out``) on a one-rank NCCL mesh:
+  ``deflate_segmented`` of 32 MiB of the filtered bench images in 16
+  segments (K6 once for all of them), ``BatchCodec(mesh)``'s level-9
+  encode (K4, K5, K6) and decode (K3), ``filter_select_sharded`` and
+  ``CorpusDecoder`` over four buckets, each equal to the call without a
+  mesh, then ``dryrun_multichip(1)`` in a spawned process.
 
 It builds the port's native host library (``swift_png_tpu_torch/_host/
 native``, ``g++``) beside the kernels and fails when the library is not
@@ -1299,8 +1305,7 @@ def encode_general_path(dev, config: str) -> dict:
     from swift_png_tpu_torch import BatchCodec, _kernels, decode_indexed
     from swift_png_tpu_torch._host.lz77.index import build_index
     from swift_png_tpu_torch.ops import deflate_optimal as tdo
-    from swift_png_tpu_torch.ops.deflate import (emit_pack_shared,
-                                                 shared_emit_input)
+    from swift_png_tpu_torch.ops.deflate import emit_input, emit_pack_shared
     from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_batch,
                                                       emit_terms_cuda,
                                                       emit_terms_reference)
@@ -1398,8 +1403,8 @@ def encode_general_path(dev, config: str) -> dict:
         toks = shared_tokens(datas, SHARED_LEVEL, dev)
         tree, freq = shared_tree(toks)
         counts = [c for _, c in toks]
-        rows, tabs, _, slots = shared_emit_input([t for t, _ in toks],
-                                                 counts, tree)
+        rows, tabs, _, slots = emit_input([t for t, _ in toks], counts,
+                                          [tree] * len(toks))
         got = emit_terms_cuda(rows, tabs, slots)
         torch.cuda.synchronize()
         errs["k6"] = max_abs(zip(got, emit_terms_reference(rows, tabs,
@@ -1517,6 +1522,182 @@ def encode_metadata_case(dev) -> None:
                  "filtered bytes")
     emit(phase="encode_metadata", images=[2, 64, 64], kind="bgra8",
          chunks=order, bytes=[len(p) for p in pngs], ok=True)
+
+
+SO_SEGMENTS = 16         # deflate_segmented: 16 segments of 2^21 bytes
+SO_SEGMENT_BYTES = 1 << 21
+SO_DECODED = 4           # images of the sharded encode read back
+
+
+def scale_out_corpus(rng):
+    """A mixed set of four buckets, written with this script's writers:
+    rgba8 64×64 (two), rgb8 33×17, Adam7 rgba8 40×24, CgBI bgra8 16×16.
+    Returns ``(PNGs, RGBA pixels)``."""
+    pngs, want = [], []
+    for h, w, config in ((64, 64, "rgba8"), (64, 64, "rgba8"),
+                         (24, 40, "adam7"), (16, 16, "cgbi")):
+        px = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        pngs.append(general_png(px, config))
+        want.append(px)
+    px = rng.integers(0, 256, (17, 33, 3), dtype=np.uint8)
+    pngs.append(plain_png(33, 17, zlib.compress(
+        filter_rows(px.reshape(17, 99), 3).tobytes(), 6), color=2))
+    want.append(np.concatenate([px, np.full((17, 33, 1), 255, np.uint8)],
+                               axis=2))
+    return pngs, want
+
+
+def scale_out_path(dev) -> dict:
+    """The scale-out layer on a one-rank NCCL mesh on ``cuda:0``
+    (``global_mesh()``), torn down at the end.  Driven with the launch
+    counts set to 0: ``deflate_segmented`` of the first 16 × 2^21 bytes of
+    the 32 filtered bench images in 16 segments (K6 once), the level-9
+    ``BatchCodec(mesh).encode`` of the 32 bench images (K4, K5, K6),
+    ``BatchCodec(mesh).decode`` of 4 of them (K3), ``filter_select_sharded``
+    on the 1 × 1 mesh at 32 × 512 × 2,048 and ``CorpusDecoder(mesh)`` on a
+    mixed set of four buckets.  Each is held against the call without a
+    mesh (or the source pixels), the segmented stream against ``zlib``;
+    then K6 against its plain version at the segments' shape, and
+    ``dryrun_multichip(1)`` in a spawned process."""
+    from swift_png_tpu_torch import _kernels
+    from swift_png_tpu_torch.ops.deflate import emit_input, emit_pack
+    from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_cuda,
+                                                      emit_terms_reference)
+    from swift_png_tpu_torch.ops.filter import filter_select_batch
+    from swift_png_tpu_torch.parallel import (BatchCodec, CorpusDecoder,
+                                              deflate_segmented,
+                                              filter_select_sharded,
+                                              global_mesh, segment_tokens)
+    from swift_png_tpu_torch.parallel.batch import filter_batch
+    from swift_png_tpu_torch.parallel.blocks import segment_trees
+    from swift_png_tpu_torch.parallel.distributed import shutdown
+    from swift_png_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    px = encode_images("photographic", B, H, W)
+    samples = torch.from_numpy(px).to(dev, torch.int32)
+    flat = filter_batch(samples, 8, 4).reshape(-1)
+    n = SO_SEGMENTS * SO_SEGMENT_BYTES
+    payload = flat[:n].cpu().numpy().tobytes()
+    rows = torch.from_numpy(px.reshape(B, H, W * 4)).to(dev)
+    corpus_pngs, corpus_want = scale_out_corpus(np.random.default_rng(14))
+    inputs_s = time.perf_counter() - t0
+    line = dict(phase="scale_out", ranks=1, inputs_seconds=inputs_s)
+    mesh = global_mesh()
+    try:
+        line.update(backend=torch.distributed.get_backend(),
+                    mesh=list(mesh.mesh.shape), mesh_device=mesh.device_type)
+        if line["backend"] != "nccl":
+            fail(f"scale_out: the mesh's group is {line['backend']}, "
+                 f"not NCCL")
+        codec = BatchCodec(mesh=mesh)
+        ms = {}
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        stream = deflate_segmented(payload, 6, SO_SEGMENTS, mesh=mesh)
+        ms["segmented"] = (time.perf_counter() - t0) * 1e3
+        seg_launches = _kernels.launch_counts()
+        t0 = time.perf_counter()
+        pngs = codec.encode(px, level=ENC_LEVEL)
+        ms["encode"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        decoded = codec.decode(pngs[:SO_DECODED], keep_on_device=True)
+        torch.cuda.synchronize()
+        ms["decode"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        refiltered = filter_select_sharded(mesh, rows, 4)
+        torch.cuda.synchronize()
+        ms["filter_select_sharded"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        corpus_px = CorpusDecoder(mesh=mesh).decode(corpus_pngs)
+        ms["corpus"] = (time.perf_counter() - t0) * 1e3
+        launches = _kernels.launch_counts()
+        # the first call above also set up NCCL's communicator: once more
+        t0 = time.perf_counter()
+        deflate_segmented(payload, 6, SO_SEGMENTS, mesh=mesh)
+        ms["segmented_warm"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutdown()
+    if seg_launches["emit"] != 1:
+        fail(f"scale_out: deflate_segmented launched K6 "
+             f"{seg_launches['emit']} times, not once")
+    for name in ("defilter", "cand", "dp_parse", "emit"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on scale_out")
+
+    # ---- the same calls without a mesh, and the sources -------------------
+    if zlib.decompress(stream) != payload:
+        fail("scale_out: the segmented stream does not inflate to its input")
+    t0 = time.perf_counter()
+    if stream != deflate_segmented(payload, 6, SO_SEGMENTS, device=dev):
+        fail("scale_out: deflate_segmented over the mesh differs from "
+             "mesh=None")
+    ms["segmented_no_mesh"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    if pngs != BatchCodec(dev).encode(px, level=ENC_LEVEL):
+        fail("scale_out: the sharded encode differs from the unsharded")
+    ms["encode_no_mesh"] = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(decoded, torch.from_numpy(px[:SO_DECODED]).to(dev)):
+        fail("scale_out: the sharded decode differs from the source")
+    if not torch.equal(refiltered, filter_select_batch(rows, 4)):
+        fail("scale_out: filter_select_sharded differs from "
+             "filter_select_batch")
+    if any(not np.array_equal(g, w) for g, w in zip(corpus_px, corpus_want)):
+        fail("scale_out: CorpusDecoder's pixels differ from the source")
+    t0 = time.perf_counter()
+    z6 = len(zlib.compress(payload, 6))
+    zlib6_ms = (time.perf_counter() - t0) * 1e3
+
+    # ---- K6 at the segments' shape; the search apart ----------------------
+    L = SO_SEGMENT_BYTES
+    seg = torch.frombuffer(bytearray(payload), dtype=torch.uint8).view(
+        SO_SEGMENTS, L).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    terms, _, counts = segment_tokens(seg, [L] * SO_SEGMENTS, t_cap=L,
+                                      lazy=True)
+    torch.cuda.synchronize()
+    ms["segment_search"] = (time.perf_counter() - t0) * 1e3
+    counts_h = counts.tolist()
+    t0 = time.perf_counter()
+    trees, freqs = segment_trees(terms.cpu().numpy(), counts_h)
+    ms["segment_trees"] = (time.perf_counter() - t0) * 1e3
+    ms["segment_pack"] = host_ms(lambda: emit_pack(list(terms), counts_h,
+                                                   trees, freqs), 1)[0]
+    k6_rows, k6_tabs, _, slots = emit_input(list(terms), counts_h, trees)
+    got = emit_terms_cuda(k6_rows, k6_tabs, slots)
+    torch.cuda.synchronize()
+    k6_err = max_abs(zip(got, emit_terms_reference(k6_rows, k6_tabs, slots)))
+    n_e = k6_rows.numel()
+    k6_bound = bound(n_e * 16 + SO_SEGMENTS * 320 * 4, n_e * K6_OPS_PER_TERM)
+    k6 = dict(max_abs_err=k6_err, slots=n_e,
+              ms=cuda_ms(lambda: emit_terms_cuda(k6_rows, k6_tabs, slots),
+                         10),
+              plain_ms=cuda_ms(lambda: emit_terms_reference(
+                  k6_rows, k6_tabs, slots), 1),
+              bound_ms=k6_bound[0], bound_by=k6_bound[1])
+    if k6_err:
+        fail(f"scale_out: K6 differs from its plain version ({k6_err})")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, timeout=240)
+    dry_s = time.perf_counter() - t0
+    line.update(
+        segmented=dict(in_bytes=n, segments=SO_SEGMENTS, segment_bytes=L,
+                       out_bytes=len(stream), zlib6_bytes=z6,
+                       ratio_vs_zlib6=len(stream) / z6, zlib6_ms=zlib6_ms,
+                       mb_per_s=n / min(ms["segmented"],
+                                        ms["segmented_warm"]) / 1e3,
+                       terms=sum(counts_h), k6_launches=seg_launches["emit"],
+                       launches=seg_launches),
+        encode=dict(images=B, level=ENC_LEVEL, equal=True),
+        decode=dict(images=SO_DECODED, pixels_equal=True),
+        filter_select=dict(shape=list(rows.shape), equal=True),
+        corpus=dict(images=len(corpus_pngs), buckets=4, pixels_equal=True),
+        ms=ms, launches=launches, k6=k6,
+        dryrun=dict(seconds=dry_s, ranks=dry))
+    emit(**line)
+    return dict(launches=launches, k6_err=k6_err)
 
 
 def k1_args(prep: dict) -> tuple:
@@ -2158,9 +2339,11 @@ def main() -> int:
     general = {config: encode_general_path(dev, config)
                for config in EG_CONFIGS}
     encode_metadata_case(dev)
+    scale = scale_out_path(dev)
     enc_err = {k: max([c[f"{k}_max_abs_err"] for c in checks]
                       + [g["errs"].get(k, 0) for g in general.values()])
                for k in ("k4", "k5", "k6")}
+    enc_err["k6"] = max(enc_err["k6"], scale["k6_err"])
     enc_err["k5"] = max(enc_err["k5"], edge_err)
     enc_err["k4"] = max(enc_err["k4"], k4_edge_err)
     b_smooth = bound(enc_smooth["k5_bytes"], enc_smooth["k5_ops"])
@@ -2193,7 +2376,8 @@ def main() -> int:
             launches=enc_launches[name],
             launches_by_path={"encode_photographic": enc_launches[name],
                               **{f"encode_general_{c}": g["launches"][name]
-                                 for c, g in general.items()}},
+                                 for c, g in general.items()},
+                              "scale_out": scale["launches"][name]},
             max_abs_err=enc_err[k],
             ms=enc[f"{k}_ms"], plain_ms=enc[f"{k}_plain_ms"], bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
@@ -2204,13 +2388,20 @@ def main() -> int:
         dict(name="decode_stamp", route="cuda",
              source="swift_png_tpu_torch/csrc/inflate_stamp.cu",
              replaces="swift_png_tpu/ops/inflate_pallas.py:130",
-             launches=launches["decode_stamp"], max_abs_err=k1_err,
+             launches=launches["decode_stamp"],
+             launches_by_path={"main_path": launches["decode_stamp"],
+                               "scale_out":
+                                   scale["launches"]["decode_stamp"]},
+             max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
              bound_by=k1_by, library_ms=None),
         dict(name="defilter", route="cuda",
              source="swift_png_tpu_torch/csrc/defilter.cu",
              replaces="swift_png_tpu/ops/unfilter_pallas.py:39",
-             launches=launches["defilter"], max_abs_err=k3_err,
+             launches=launches["defilter"],
+             launches_by_path={"main_path": launches["defilter"],
+                               "scale_out": scale["launches"]["defilter"]},
+             max_abs_err=k3_err,
              ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
              bound_by=k3_by, library_ms=None),
         # K2 copies bytes and computes one index per byte: bytes bound it
@@ -2218,7 +2409,10 @@ def main() -> int:
              source="swift_png_tpu_torch/csrc/seqcopy.cu",
              replaces="swift_png_tpu/ops/inflate_seqcopy.py:158, "
                       "tools/exp_seqcopy.py:39",
-             launches=k2["launches"], max_abs_err=k2_err, ms=k2["ms"],
+             launches=k2["launches"],
+             launches_by_path={"records": k2["launches"],
+                               "scale_out": scale["launches"]["seqcopy"]},
+             max_abs_err=k2_err, ms=k2["ms"],
              plain_ms=k2["plain_ms"],
              bound_ms=k2["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),

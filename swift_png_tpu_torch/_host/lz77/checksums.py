@@ -1,7 +1,9 @@
-"""Adler-32 and CRC-32 on the host (copies of ``adler32`` and ``crc32``
-from ``swift_png_tpu/lz77/checksums.py``): the host ``Inflator`` folds
-both over its output, and the fused inflate's gzip form checks the
-CRC-32."""
+"""Adler-32 and CRC-32 on the host, with their combine operators (copies
+of ``adler32``, ``adler32_combine``, ``crc32`` and ``crc32_combine`` from
+``swift_png_tpu/lz77/checksums.py``): the host ``Inflator`` folds both
+over its output, the fused inflate's gzip form checks the CRC-32, and the
+scale-out layer assembles a stream's checksum from its shards' (Adler-32
+is affine in the data, CRC-32 linear over GF(2))."""
 
 from __future__ import annotations
 
@@ -32,6 +34,17 @@ def adler32(data: bytes | bytearray | memoryview | np.ndarray,
         weighted = int((chunk * np.arange(n, 0, -1, dtype=np.int64)).sum())
         s2 = (s2 + n * s1 + weighted) % ADLER_MOD
         s1 = (s1 + total) % ADLER_MOD
+    return (s2 << 16) | s1
+
+
+def adler32_combine(a: int, b: int, len_b: int) -> int:
+    """Adler-32 of ``A||B`` from ``adler32(A)``, ``adler32(B)`` and
+    ``len(B)``."""
+    a1, a2 = a & 0xFFFF, (a >> 16) & 0xFFFF
+    b1, b2 = b & 0xFFFF, (b >> 16) & 0xFFFF
+    rem = len_b % ADLER_MOD
+    s1 = (a1 + b1 - 1) % ADLER_MOD
+    s2 = (a2 + b2 + rem * a1 - rem) % ADLER_MOD
     return (s2 << 16) | s1
 
 
@@ -72,3 +85,36 @@ def crc32(data: bytes | bytearray | memoryview | np.ndarray,
     for byte in buf[8 * n8:]:
         crc = int(_CRC_TABLE[(crc ^ byte) & 0xFF]) ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+def _gf2_matrix_times(mat: list[int], vec: int) -> int:
+    total = 0
+    i = 0
+    while vec:
+        if vec & 1:
+            total ^= mat[i]
+        vec >>= 1
+        i += 1
+    return total
+
+
+def _gf2_matrix_square(mat: list[int]) -> list[int]:
+    return [_gf2_matrix_times(mat, mat[i]) for i in range(32)]
+
+
+def crc32_combine(a: int, b: int, len_b: int) -> int:
+    """CRC-32 of ``A||B`` from ``crc32(A)``, ``crc32(B)`` and ``len(B)``:
+    the shift by x^(8·len_b) applied to ``a`` by repeated squaring of the
+    one-zero-bit operator over GF(2)."""
+    if len_b == 0:
+        return a
+    crc = a
+    op = [CRC32_POLY] + [1 << (i - 1) for i in range(1, 32)]
+    n = len_b * 8
+    while n:
+        if n & 1:
+            crc = _gf2_matrix_times(op, crc)
+        n >>= 1
+        if n:
+            op = _gf2_matrix_square(op)
+    return crc ^ b

@@ -14,7 +14,8 @@ every atom has the same bits.
 
 The greedy/lazy match search (:func:`greedy_tokens`, with
 :func:`_match_search`, :func:`term_frequencies` and :func:`_stream_bits`)
-feeds the shared-trees encode and :func:`deflate_device`.  Every position's
+feeds the shared-trees encode, the segmented deflate
+(``parallel/blocks.py``) and :func:`deflate_device`.  Every position's
 4-byte key is sorted with its position; a position's nearest predecessors
 under the same key are its neighbours in that order, their match runs come
 from chunked 4-byte compares, and the parse is read off by pointer jumping
@@ -41,7 +42,8 @@ from .._kernels import resolve_device
 
 __all__ = ["term_pieces", "scatter_pack", "max_term_bits",
            "atoms32_to_bytes", "append_bits", "greedy_tokens",
-           "term_frequencies", "shared_emit_input", "emit_pack_shared",
+           "term_frequencies", "emit_input", "emit_pack",
+           "emit_pack_shared",
            "deflate_device"]
 
 
@@ -417,14 +419,15 @@ def greedy_tokens(data: torch.Tensor, n: int, *, k: int = 4, t_cap: int,
     return _as_int32(terms[:t_cap]), tvalid, count
 
 
-def shared_emit_input(terms_list: list, counts: list, tree):
-    """K6's input for B streams packed against ONE tree set: ``(terms
-    (B·slots,) int32, tabs (B, 320), live (B, slots) bool, slots)`` —
-    each stream's first ``counts[i]`` terms in a row of ``slots`` (a
-    multiple of 256), the tree's emit table repeated B times."""
+def emit_input(terms_list: list, counts: list, trees: list):
+    """K6's input for B streams, stream ``i`` packed against ``trees[i]``
+    (``(lit lengths, dist lengths)``): ``(terms (B·slots,) int32, tabs
+    (B, 320), live (B, slots) bool, slots)`` — each stream's first
+    ``counts[i]`` terms in a row of ``slots`` (a multiple of 256), its
+    tree's emit table in its row of ``tabs`` (a table built once for a
+    tree that repeats)."""
     from .deflate_emit import pack_emit_table
 
-    lit_l, dist_l = tree
     dev = terms_list[0].device
     B = len(terms_list)
     slots = max(256, -(-max(counts) // 256) * 256)
@@ -433,28 +436,40 @@ def shared_emit_input(terms_list: list, counts: list, tree):
         rows[i, :c] = t[:c]
     live = (torch.arange(slots, device=dev)[None]
             < torch.tensor(counts, device=dev)[:, None])
-    tab = torch.from_numpy(pack_emit_table(*_emit_tables(lit_l, dist_l)))
-    tabs = tab.to(dev)[None].expand(B, -1).contiguous()
+    built: dict = {}
+    for tree in trees:
+        if id(tree) not in built:
+            built[id(tree)] = torch.from_numpy(
+                pack_emit_table(*_emit_tables(*tree)))
+    tabs = torch.stack([built[id(t)] for t in trees]).to(dev)
     return rows.view(-1), tabs, live, slots
 
 
-def emit_pack_shared(terms_list: list, counts: list, tree, freq):
-    """Emit and pack the terms of B streams against ONE tree set: K6 in
-    one launch over all of them (:func:`shared_emit_input`), then the
-    scatter pack.  ``freq`` is the histogram the trees were built from.
+def emit_pack(terms_list: list, counts: list, trees: list, freqs: list):
+    """Emit and pack the terms of B streams, stream ``i`` against
+    ``trees[i]`` built from the histogram ``freqs[i]``: K6 in one launch
+    over all of them (:func:`emit_input`), then the scatter pack.
     Returns ``[(body bytes, total bits)]``."""
     from .deflate_emit import emit_terms_batch
     from .deflate_optimal import _fetch_bodies
 
-    rows, tabs, live, slots = shared_emit_input(terms_list, counts, tree)
+    rows, tabs, live, slots = emit_input(terms_list, counts, trees)
     B = live.shape[0]
     lo, hi, nb = emit_terms_batch(rows, tabs, slots)
     nbv = torch.where(live, nb.view(B, slots), 0)
     offs = torch.cumsum(nbv, dim=1, dtype=torch.int32) - nbv
-    spans = 2 if max_term_bits(*tree, freq) <= 33 else 3
+    bits = max(max_term_bits(*t, f) for t, f in zip(trees, freqs))
     atoms, totals = scatter_pack(lo.view(B, slots), hi.view(B, slots), nbv,
-                                 offs, spans, (3 * slots) // 2 + 8)
+                                 offs, 2 if bits <= 33 else 3,
+                                 (3 * slots) // 2 + 8)
     return _fetch_bodies(list(atoms), totals)
+
+
+def emit_pack_shared(terms_list: list, counts: list, tree, freq):
+    """:func:`emit_pack` with ONE tree set, built from ``freq``, for every
+    stream."""
+    B = len(terms_list)
+    return emit_pack(terms_list, counts, [tree] * B, [freq] * B)
 
 
 def deflate_device(data: bytes, level: int = 3, device=None) -> bytes:

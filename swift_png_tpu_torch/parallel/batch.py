@@ -2,8 +2,9 @@
 
 Counterpart of ``decode_indexed``, ``decode_stage``,
 ``_palette_key_arrays``, ``_fused_engine``, ``encode_stage``,
-``BatchCodec.decode``/``decode_filtered``/``encode`` and
-``deflate_shared_trees`` in ``swift_png_tpu/parallel/batch.py``.  Indexed
+``filter_select_sharded``, ``BatchCodec.decode``/``decode_filtered``/
+``encode`` and ``deflate_shared_trees`` in
+``swift_png_tpu/parallel/batch.py``.  Indexed
 decode lexes each PNG, reads its ``spIx`` checkpoint chunk, inflates the
 whole batch with the checkpoint-parallel kernel, then defilters (K3) and
 convolves to RGBA.
@@ -14,12 +15,15 @@ of the batch on the device (each Adam7 pass apart for interlaced images),
 then deflates the batch with the level 8–13 optimal parse (K4, K5, K6),
 the greedy search with one shared tree set (K6), the native library's
 deflate or the host ``Deflator``, and writes the containers on the host.
+Over a device mesh (``BatchCodec(mesh=…)``) each process runs the device
+stages of its block of images and the blocks are gathered back.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._host import native as _native
 from .._host.lz77.deflate import Deflator
@@ -41,10 +45,11 @@ from ..ops.filter import filter_select_batch
 from ..ops.inflate_checkpoint import CheckpointInflator
 from ..ops.inflate_fused import InflateFused
 from ..ops.unfilter import defilter_batch
+from .distributed import axis_block, gather_blocks, mesh_device
 
 __all__ = ["decode_indexed", "decode_stage", "lex_png", "parse_indexed",
-           "encode_stage", "filter_batch", "BatchCodec",
-           "deflate_shared_trees"]
+           "encode_stage", "filter_batch", "filter_select_sharded",
+           "BatchCodec", "deflate_shared_trees"]
 
 
 _FUSED: dict = {}
@@ -237,17 +242,87 @@ def filter_batch(samples: torch.Tensor, depth: int, channels: int,
     return torch.cat(parts, dim=1)
 
 
+def filter_select_sharded(mesh, rows: torch.Tensor, delay: int,
+                          images_axis: str = "images",
+                          rows_axis: str = "rows") -> torch.Tensor:
+    """Filter select sharded over a 2-D ``(images, rows)`` device mesh, in
+    SPMD form: each process passes its own block ``rows`` ``(B_local,
+    H_local, pitch)`` uint8 and gets its block of the filtered scanlines,
+    ``(B_local, H_local, 1 + pitch)``.  (The JAX version takes the global
+    array and returns the global result.)
+
+    A row shard needs the raw row just above its first row (the Up,
+    Average and Paeth reference): the previous row shard's last raw row
+    arrives over the ``rows`` sub-group (``batch_isend_irecv``), and the
+    first shard takes zeros, as the JAX version masks its wrap-around.
+    The halo and the block go through :func:`filter_select_batch` and the
+    halo's row is dropped.  Every process of a column must pass the same
+    ``B_local`` and ``pitch``.
+    """
+    axis = mesh.mesh_dim_names.index(rows_axis)
+    idx, n = mesh.get_local_rank(rows_axis), mesh.size(axis)
+    group = mesh.get_group(rows_axis)
+    halo = torch.zeros_like(rows[:, 0])
+    ops = []
+    if idx + 1 < n:
+        ops.append(dist.P2POp(dist.isend, rows[:, -1].contiguous(),
+                              dist.get_global_rank(group, idx + 1), group))
+    if idx > 0:
+        ops.append(dist.P2POp(dist.irecv, halo,
+                              dist.get_global_rank(group, idx - 1), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    padded = torch.cat([halo[:, None], rows], dim=1)
+    return filter_select_batch(padded, delay)[:, 1:]
+
+
 class BatchCodec:
-    """Batch decode and encode of same-shape images on one device.
+    """Batch decode and encode of same-shape images on one device, or over
+    a device mesh.
 
     ``device``: ``cuda`` unless the caller names another; ``"cpu"`` runs
     the plain PyTorch versions of the kernels.  With no device named and
-    no GPU present this raises.  (The JAX version takes a device mesh; one
-    device serves here.)
+    no GPU present this raises.
+
+    ``mesh``: a ``DeviceMesh`` with a dimension named ``images_axis``
+    (:func:`~swift_png_tpu_torch.parallel.distributed.global_mesh`).  The
+    device then comes from the mesh (``cuda:<local rank>``, or ``cpu``).
+    The mesh shards what the JAX version shards: ``decode`` runs the
+    defilter and convolve (``decode_stage``, or the Adam7 deinterlace) and
+    ``encode`` the filter stage (``filter_batch``) on this process's
+    contiguous block of images, and the blocks come back to every process
+    with ``all_gather_into_tensor`` over the images sub-group.  Everything
+    else, lexing and inflate, the deflate and the containers, runs on
+    every process as without a mesh, and processes along other mesh
+    dimensions repeat their column's work.  Every process must make the
+    same calls with the same inputs; the results equal the calls without
+    a mesh byte for byte.
     """
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, mesh=None, images_axis: str = "images"):
+        if mesh is not None:
+            mdev = mesh_device(mesh)
+            if device is not None and torch.device(device) != mdev:
+                raise ValueError(f"device {device} is not this process's "
+                                 f"device on the mesh, {mdev}")
+            self.device = mdev
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        self.images_axis = images_axis
+
+    def _sharded(self, fn, n: int) -> torch.Tensor:
+        """``fn(lo, hi)``, a device stage over images ``[lo, hi)`` of a
+        batch of ``n``: with a mesh over this process's block, the blocks
+        gathered back to every process; else over all ``n``.  A process
+        whose block is empty (``n`` under the images axis's size) runs the
+        stage on the first image to learn the block's shape."""
+        if self.mesh is None:
+            return fn(0, n)
+        lo, hi, block = axis_block(self.mesh, self.images_axis, n)
+        part = fn(lo, hi) if hi > lo else fn(0, 1)[:0]
+        return gather_blocks(self.mesh, self.images_axis, part, n, block)
 
     # -- decode -----------------------------------------------------------
 
@@ -334,20 +409,27 @@ class BatchCodec:
         key = None if key is None else torch.from_numpy(key).to(self.device)
         # CgBI streams store bgr8/bgra8 byte order
         is_bgr = info["standard"] == IOS and pixel.channels >= 3
-        if info["interlaced"]:
-            samples = deinterlace_samples(filtered, size=(W, H),
-                                          depth=pixel.depth,
-                                          channels=pixel.channels)
-            out = convolve.samples_to_rgba(
-                samples, depth=pixel.depth, channels=pixel.channels,
+
+        def run(lo: int, hi: int) -> torch.Tensor:
+            pal_b = None if pal is None else pal[lo:hi]
+            key_b = None if key is None else key[lo:hi]
+            if info["interlaced"]:
+                samples = deinterlace_samples(filtered[lo:hi], size=(W, H),
+                                              depth=pixel.depth,
+                                              channels=pixel.channels)
+                return convolve.samples_to_rgba(
+                    samples, depth=pixel.depth, channels=pixel.channels,
+                    is_bgr=is_bgr, is_indexed=pixel.is_indexed,
+                    has_key=key_b is not None, palette=pal_b, key=key_b,
+                    bits=bits)
+            return decode_stage(
+                filtered[lo:hi], delay=(pixel.volume + 7) >> 3,
+                depth=pixel.depth, channels=pixel.channels, width=W,
                 is_bgr=is_bgr, is_indexed=pixel.is_indexed,
-                has_key=key is not None, palette=pal, key=key, bits=bits)
-        else:
-            out = decode_stage(
-                filtered, delay=(pixel.volume + 7) >> 3, depth=pixel.depth,
-                channels=pixel.channels, width=W, is_bgr=is_bgr,
-                is_indexed=pixel.is_indexed, has_key=key is not None,
-                palette=pal, key=key, bits=bits)
+                has_key=key_b is not None, palette=pal_b, key=key_b,
+                bits=bits)
+
+        out = self._sharded(run, filtered.shape[0])
         return out if keep_on_device else out.cpu().numpy()
 
     # -- encode -----------------------------------------------------------
@@ -405,7 +487,8 @@ class BatchCodec:
                              f"got {Cn}")
         delay = max(1, (pixel.volume + 7) >> 3)
         samples = x.to(device=self.device, dtype=torch.int32)
-        filtered = filter_batch(samples, pixel.depth, Cn, interlaced)
+        filtered = self._sharded(lambda lo, hi: filter_batch(
+            samples[lo:hi], pixel.depth, Cn, interlaced), B)
         flat_np = filtered.cpu().numpy()
         datas = [flat_np[b].tobytes() for b in range(B)]
 

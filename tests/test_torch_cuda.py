@@ -573,3 +573,61 @@ def test_encode_general_on_card_matches_cpu(cuda, case, monkeypatch):
         assert (counts["cand"], counts["dp_parse"], counts["emit"]) == (
             1, 4, 1)
     assert pngs == BatchCodec("cpu").encode(px, **kw)
+
+
+def test_deflate_segmented_on_card_matches_cpu(cuda):
+    """``deflate_segmented`` of 60,000 bytes in 8 segments: the card's
+    stream is the CPU's, with K6 launched once for every segment."""
+    from swift_png_tpu_torch.parallel import deflate_segmented
+
+    rng = np.random.default_rng(8)
+    data = np.tile(rng.integers(0, 256, 700, dtype=np.uint8), 90)
+    data[::7] = rng.integers(0, 256, data[::7].size, dtype=np.uint8)
+    data = data[:60_000].tobytes()
+    _kernels.reset_launches()
+    got = deflate_segmented(data, 6, 8)
+    assert _kernels.launch_counts()["emit"] == 1
+    assert got == deflate_segmented(data, 6, 8, device="cpu")
+    assert zlib.decompress(got) == data
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL mesh on the card (``global_mesh()``), torn down
+    after the test."""
+    from swift_png_tpu_torch.parallel.distributed import global_mesh, shutdown
+
+    mesh = global_mesh()
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield mesh
+    finally:
+        shutdown()
+
+
+@pytest.mark.parametrize("call", ["encode", "decode", "filter_select"])
+def test_one_rank_nccl_mesh_matches_no_mesh(nccl_mesh, call):
+    """``BatchCodec(mesh)``'s encode and decode and
+    ``filter_select_sharded`` on a one-rank NCCL mesh equal the calls
+    without a mesh."""
+    from swift_png_tpu_torch.ops.filter import filter_select_batch
+    from swift_png_tpu_torch.parallel import filter_select_sharded
+
+    px = np.stack([chip_smoke.bench_image(s, 40, 56) for s in range(3)])
+    codec = BatchCodec(mesh=nccl_mesh)
+    assert codec.device == torch.device("cuda", 0)
+    if call == "encode":
+        _kernels.reset_launches()
+        got = codec.encode(px, level=9)
+        assert _kernels.launch_counts()["emit"] >= 1
+        assert got == BatchCodec().encode(px, level=9)
+    elif call == "decode":
+        pngs = [chip_smoke.general_png(p, "rgba8") for p in px]
+        got = codec.decode(pngs, keep_on_device=True)
+        assert torch.equal(got, BatchCodec().decode(pngs,
+                                                    keep_on_device=True))
+        assert torch.equal(got.cpu(), torch.from_numpy(px))
+    else:
+        rows = torch.from_numpy(px.reshape(3, 40, 56 * 4)).cuda()
+        assert torch.equal(filter_select_sharded(nccl_mesh, rows, 4),
+                           filter_select_batch(rows, 4))
