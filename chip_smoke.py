@@ -44,7 +44,16 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
   segments (K6 once for all of them), ``BatchCodec(mesh)``'s level-9
   encode (K4, K5, K6) and decode (K3), ``filter_select_sharded`` and
   ``CorpusDecoder`` over four buckets, each equal to the call without a
-  mesh, then ``dryrun_multichip(1)`` in a spawned process.
+  mesh, then ``dryrun_multichip(1)`` in a spawned process;
+* the single-image API (``host_api``): ``Image.decompress_bytes`` and
+  ``Image.compress_bytes(level=9)`` against ``BatchCodec.decode`` and
+  ``BatchCodec.encode(level=9)`` on the card on the bench image, plain and
+  Adam7, each read back through the other path (K3; K4, K5, K6); a 128×128
+  image of every colour kind through the Python engine; a ``Context`` fed
+  in 4,096-byte pieces; gzip both ways with Python's ``gzip``; every
+  subcommand of ``python -m swift_png_tpu_torch`` in a subprocess; and the
+  convolve twins ``samples_to_va``, ``premultiply`` and ``straighten`` on
+  the card against the CPU.
 
 It builds the port's native host library (``swift_png_tpu_torch/_host/
 native``, ``g++``) beside the kernels and fails when the library is not
@@ -2083,6 +2092,246 @@ def general_decode_path(dev, config: str) -> dict:
     return dict(k3_err=k3_err, k3_launches=launches["defilter"])
 
 
+# ---- the single-image API, gzip and the CLI (host_api) ---------------------
+
+HA_KINDS = ("v1", "v2", "v4", "v8", "v16", "va8", "va16", "rgb8", "rgb16",
+            "rgba8", "rgba16", "indexed1", "indexed2", "indexed4",
+            "indexed8", "bgr8", "bgra8")
+HA_SIZE = 128           # side of the small images of every kind
+HA_GZIP_BYTES = 1 << 18
+
+
+def kind_image(kind: str, seed: int):
+    """``(pixels, Format)``: a ``HA_SIZE``² image of ``kind`` that the kind
+    holds exactly, as RGBA (uint16 for the 16-bit kinds)."""
+    from swift_png_tpu_torch.png import Format
+
+    rng = np.random.default_rng(seed)
+    n = HA_SIZE
+    depth = int("".join(c for c in kind if c.isdigit()))
+    if kind.startswith("indexed"):
+        pal = tuple((i * 37 % 256, i * 91 % 256, i * 13 % 256,
+                     255 if i > 2 else 80 * i) for i in range(1 << depth))
+        return (np.array(pal, np.uint8)[rng.integers(0, len(pal), (n, n))],
+                Format(kind, pal))
+    dtype, top = (np.uint16, 65535) if depth == 16 else (np.uint8, 255)
+    px = rng.integers(0, top + 1, (n, n, 4)).astype(dtype)
+    if kind[0] == "v":
+        v = rng.integers(0, 1 << depth, (n, n)) * (top // ((1 << depth) - 1))
+        px[..., :3] = v[..., None]
+    if not kind.startswith(("va", "rgba", "bgra")):
+        px[..., 3] = top
+    return px, Format(kind)
+
+
+def host_api_phase(dev) -> None:
+    """The single-image API against the batched codec on the card, each
+    step on a line of its own with its host ms: ``decode`` (two of
+    ``general_decode``'s 512×512 inputs, rgba8 and Adam7 at zlib -6,
+    through ``Image.decompress_bytes`` and ``BatchCodec.decode``),
+    ``encode`` (the same images through ``Image.compress_bytes(level=9)``
+    on the native engine and ``BatchCodec.encode(level=9)``, each read back
+    through the other path), ``kinds`` (a 128×128 image of every kind
+    through the Python engine at level 6 and back), ``stream`` (one file
+    through ``Context`` in 4,096-byte pieces), ``gzip`` (256 KiB through
+    ``archive`` at level 6 and Python's ``gzip``, and back), ``cli`` (every
+    subcommand of ``python -m swift_png_tpu_torch`` in a subprocess) and
+    ``convolve`` (``samples_to_va``, ``premultiply`` and ``straighten`` at
+    512×512 rgba16 on the card against the CPU).  Every check is exact."""
+    import gzip
+    import tempfile
+
+    from swift_png_tpu_torch import BatchCodec, _kernels
+    from swift_png_tpu_torch.lz77 import gzip as tgzip
+    from swift_png_tpu_torch.ops import convolve
+    from swift_png_tpu_torch.png import (ByteSource, Context, Format, Image,
+                                         Layout, Metadata, parsing)
+
+    codec = BatchCodec(dev)
+    px = bench_image(0)
+
+    def step(name: str, t0: float, **fields) -> None:
+        emit(phase="host_api", step=name,
+             ms=(time.perf_counter() - t0) * 1e3, **fields)
+
+    # ---- decode parity ---------------------------------------------------
+    pngs = {c: general_png(px, c) for c in ("rgba8", "adam7")}
+    for config, p in pngs.items():
+        t0 = time.perf_counter()
+        host = Image.decompress_bytes(p).unpack_rgba8()
+        host_ms_ = (time.perf_counter() - t0) * 1e3
+        _kernels.reset_launches()
+        t1 = time.perf_counter()
+        card = codec.decode([p], keep_on_device=True)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t1) * 1e3
+        launches = _kernels.launch_counts()
+        if launches["defilter"] < 1:
+            fail(f"host_api decode {config}: K3 was not launched")
+        if not (np.array_equal(host, px)
+                and np.array_equal(card[0].cpu().numpy(), host)):
+            fail(f"host_api decode {config}: Image and BatchCodec differ")
+        step("decode", t0, config=config, image_ms=host_ms_,
+             batch_ms=card_ms, launches=launches, pixels_equal=True)
+
+    # ---- encode parity, each read back through the other path -------------
+    for config in ("rgba8", "adam7"):
+        interlaced = config == "adam7"
+        t0 = time.perf_counter()
+        single = Image.pack(px, Layout(Format("rgba8"), interlaced)
+                            ).compress_bytes(level=9, engine="native")
+        single_ms = (time.perf_counter() - t0) * 1e3
+        _kernels.reset_launches()
+        t1 = time.perf_counter()
+        batch = codec.encode(px[None], level=9, interlaced=interlaced)[0]
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t1) * 1e3
+        launches = _kernels.launch_counts()
+        for name in ("cand", "dp_parse", "emit"):
+            if launches[name] < 1:
+                fail(f"host_api encode {config}: {name} was not launched")
+        back_batch = codec.decode([single], keep_on_device=True)
+        back_single = Image.decompress_bytes(batch).unpack_rgba8()
+        if not (np.array_equal(back_batch[0].cpu().numpy(), px)
+                and np.array_equal(back_single, px)):
+            fail(f"host_api encode {config}: a read-back differs")
+        step("encode", t0, config=config, image_ms=single_ms,
+             batch_ms=batch_ms, image_bytes=len(single),
+             batch_bytes=len(batch), launches=launches,
+             read_back_equal=True)
+
+    # ---- every kind through the Python engine, and a streamed file --------
+    t0 = time.perf_counter()
+    sizes = {}
+    for i, kind in enumerate(HA_KINDS):
+        kpx, fmt = kind_image(kind, i)
+        blob = Image.pack(kpx, Layout(fmt, i % 2 == 1)).compress_bytes(
+            level=6, engine="python")
+        img = Image.decompress_bytes(blob)
+        got = (img.unpack_rgba16() if kpx.dtype == np.uint16
+               else img.unpack_rgba8())
+        if not np.array_equal(got, kpx):
+            fail(f"host_api kinds: {kind} does not come back")
+        sizes[kind] = len(blob)
+    step("kinds", t0, size=HA_SIZE, engine="python", level=6,
+         bytes=sizes, interlaced=list(HA_KINDS[1::2]))
+
+    t0 = time.perf_counter()
+    rgba, fmt = kind_image("rgba8", 0)
+    blob = Image.pack(rgba, Layout(fmt)).compress_bytes(level=6)
+    src = ByteSource(blob)
+    src.signature()
+    _, ihdr = src.chunk()
+    header = parsing.Header.parse(ihdr, "common")
+    ctx = Context("common", header, None, None, None, Metadata())
+    idat = b""
+    while True:
+        kind_, data = src.chunk()
+        if kind_ != "IDAT":
+            break
+        idat += data
+    for at in range(0, len(idat), 4096):
+        ctx.push_data(idat[at:at + 4096])
+    ctx.push_ancillary(kind_, data)
+    if not np.array_equal(ctx.image.unpack_rgba8(), rgba):
+        fail("host_api stream: the streamed image differs")
+    step("stream", t0, pieces=-(-len(idat) // 4096), idat_bytes=len(idat))
+
+    # ---- gzip both ways ----------------------------------------------------
+    rng = np.random.default_rng(5)
+    words = [bytes(rng.integers(97, 123, rng.integers(2, 9)))
+             for _ in range(200)]
+    text = b" ".join(words[i] for i in rng.integers(0, 200, HA_GZIP_BYTES
+                                                     // 4))[:HA_GZIP_BYTES]
+    t0 = time.perf_counter()
+    ours = tgzip.archive(text, level=6)
+    archive_ms = (time.perf_counter() - t0) * 1e3
+    theirs = gzip.compress(text, 6)
+    t1 = time.perf_counter()
+    back = tgzip.extract(theirs)
+    extract_ms = (time.perf_counter() - t1) * 1e3
+    if gzip.decompress(ours) != text or back != text:
+        fail("host_api gzip: a member does not come back")
+    step("gzip", t0, bytes=len(text), level=6, archive_ms=archive_ms,
+         extract_ms=extract_ms, archive_bytes=len(ours),
+         python_gzip_bytes=len(theirs))
+
+    # ---- the CLI in subprocesses -------------------------------------------
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "f.png"), "wb") as f:
+            f.write(blob)
+        with open(os.path.join(tmp, "text.txt"), "wb") as f:
+            f.write(text[:1 << 14])
+        with open(os.path.join(tmp, "python.gz"), "wb") as f:
+            f.write(gzip.compress(text[:1 << 14], 6))
+        cli = sys.executable, "-m", "swift_png_tpu_torch"
+        # each command reads only the inputs above: all run at once
+        argvs = [("inspect", "f.png"), ("decode", "f.png", "out.rgba"),
+                 ("recode", "f.png", "re.png", "--level", "9", "--index"),
+                 ("index", "f.png", "ix.png"),
+                 ("gzip", "text.txt", "--level", "6"),
+                 ("gunzip", "python.gz", "back.txt")]
+        procs = [(a, subprocess.Popen(cli + a, cwd=tmp, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+                 for a in argvs]
+        out = {}
+        try:
+            for a, p in procs:
+                so, se = p.communicate(timeout=180)
+                if p.returncode != 0:
+                    fail(f"host_api cli {a[0]}: exit {p.returncode}: {se}")
+                out[a[0]] = so
+        finally:
+            for _, p in procs:
+                p.kill()
+                p.wait()
+
+        def read(name):
+            with open(os.path.join(tmp, name), "rb") as f:
+                return f.read()
+
+        checks = {
+            "inspect": (f"PNG image {HA_SIZE}×{HA_SIZE} (rgba8)"
+                        in out["inspect"]),
+            "decode": read("out.rgba") == rgba.tobytes(),
+            "recode": b"spIx" in read("re.png") and np.array_equal(
+                Image.decompress_bytes(read("re.png")).unpack_rgba8(), rgba),
+            "index": b"spIx" in read("ix.png") and np.array_equal(
+                Image.decompress_bytes(read("ix.png")).unpack_rgba8(), rgba),
+            "gzip": gzip.decompress(read("text.txt.gz")) == text[:1 << 14],
+            "gunzip": read("back.txt") == text[:1 << 14]}
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"host_api cli {name}: wrong output")
+    step("cli", t0, commands=list(checks), stdout={k: v.strip()
+                                                   for k, v in out.items()})
+
+    # ---- the convolve twins on the card -------------------------------------
+    t0 = time.perf_counter()
+    raw = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 1 << 16, (1, H, W, 4)).astype(np.int32))
+    rgb = raw[..., :3].to(torch.uint16)
+    alpha = raw[..., 3:].expand_as(raw[..., :3]).to(torch.uint16)
+    card_ms = {}
+    for name, fn, args in (
+            ("samples_to_va", lambda r: convolve.samples_to_va(
+                r, depth=16, channels=4, bits=16), (raw,)),
+            ("premultiply", convolve.premultiply, (rgb, alpha)),
+            ("straighten", convolve.straighten, (rgb, alpha))):
+        want = fn(*args)
+        on_card = [a.to(dev) for a in args]
+        card_ms[name] = min(host_ms(lambda: fn(*on_card), 3))
+        got = fn(*on_card)
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            fail(f"host_api convolve: {name} on the card differs")
+    step("convolve", t0, shape=[1, H, W, 4], kind="rgba16",
+         card_ms=card_ms, equal=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2340,6 +2589,7 @@ def main() -> int:
                for config in EG_CONFIGS}
     encode_metadata_case(dev)
     scale = scale_out_path(dev)
+    host_api_phase(dev)
     enc_err = {k: max([c[f"{k}_max_abs_err"] for c in checks]
                       + [g["errs"].get(k, 0) for g in general.values()])
                for k in ("k4", "k5", "k6")}

@@ -1,3 +1,3 @@
 """DEFLATE host layer: constants, errors, canonical Huffman tables, the
-checkpoint index walker, the host inflator and the host deflator (copies
-of ``swift_png_tpu/lz77``)."""
+checkpoint index walker, the host inflators (zlib, iOS, gzip), the host
+and native deflaters and gzip (copies of ``swift_png_tpu/lz77``)."""

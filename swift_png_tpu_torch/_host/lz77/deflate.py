@@ -1,13 +1,16 @@
 """The host DEFLATE encoder: the level table, the ``Depths`` cost model,
 the hash-chain window, block serialization and the streaming
 ``RawDeflator``/``Deflator`` with their greedy, lazy and full
-(minimum-cost path) strategies (copies of ``search_parameters`` through
-``Deflator`` in ``swift_png_tpu/lz77/deflate.py``).
+(minimum-cost path) strategies, and the ``NativeDeflator`` over the native
+library with the ``make_deflator`` that picks between them (copies of
+``search_parameters`` through ``make_deflator`` in
+``swift_png_tpu/lz77/deflate.py``).
 
 Levels 0–3 are greedy, 4–7 lazy and 8–13 the full strategy; greedy and
-lazy emit a match only when its run is 6 or more.  Pure Python: the
-batched encoder runs it for levels <= 7 without the native library, and
-the ``iCCP`` and compressed text chunks deflate with it at level 13.
+lazy emit a match only when its run is 6 or more.  The Python engine is
+what the batched encoder runs for levels <= 7 without the native library;
+the ``iCCP`` and compressed text chunks and gzip deflate with it, and the
+single-image encoder with the engine that ``make_deflator`` picks.
 """
 
 from __future__ import annotations
@@ -674,3 +677,66 @@ class Deflator:
         out = bytes(self._buffer)
         self._buffer.clear()
         return out
+
+
+class NativeDeflator:
+    """``Deflator``'s push/pop/pull surface over the native engine.
+
+    The input is gathered and compressed in one call at ``last`` (the
+    engine blocks it itself), then handed out in ``hint``-sized pieces,
+    which become the image's IDAT chunks (``PNG.Image.swift:568-574``) and
+    keep each under the 2^31 − 1 byte chunk limit.
+    """
+
+    def __init__(self, format: str = "zlib", level: int = 9,
+                 exponent: int = 15, hint: int = 1 << 15) -> None:
+        if format not in ("zlib", "ios"):
+            raise ValueError(f"unknown format {format!r}")
+        if not 8 <= exponent <= 15:
+            raise ValueError(
+                "exponent cannot be less than 8 or greater than 15")
+        self.format = format
+        self.level = level
+        self.exponent = exponent
+        self.hint = max(1, hint)
+        self._parts: list[bytes] = []
+        self._out = b""
+        self._cursor = 0
+        self._finished = False
+
+    def push(self, data: bytes, last: bool = False) -> None:
+        assert not self._finished
+        self._parts.append(bytes(data))
+        if last:
+            from .. import native
+
+            self._out = native.deflate(b"".join(self._parts), self.level,
+                                       self.format, exponent=self.exponent)
+            self._finished = True
+
+    def pop(self) -> bytes | None:
+        """The next ``hint``-sized piece, or ``None`` before ``last``."""
+        if len(self._out) - self._cursor <= 0:
+            return None
+        return self.pull()
+
+    def pull(self) -> bytes:
+        """The next ``hint``-sized piece (empty once all are out)."""
+        take = min(len(self._out) - self._cursor, self.hint)
+        out = self._out[self._cursor: self._cursor + take]
+        self._cursor += take
+        return out
+
+
+def make_deflator(format: str = "zlib", level: int = 9, exponent: int = 15,
+                  hint: int = 1 << 15, engine: str = "auto"):
+    """A ``Deflator`` (``engine="python"``) or a :class:`NativeDeflator`
+    (``"native"``); ``"auto"`` takes the native engine when the library is
+    available."""
+    if engine == "auto":
+        from .. import native
+
+        engine = "native" if native.available() else "python"
+    if engine == "native":
+        return NativeDeflator(format, level, exponent, hint)
+    return Deflator(format, level, exponent, hint)

@@ -1,14 +1,17 @@
-"""Streaming DEFLATE/zlib inflate on the host (copies of ``RawInflator``
-and ``Inflator`` from ``swift_png_tpu/lz77/inflate.py``).
+"""Streaming DEFLATE/zlib/gzip inflate on the host (copies of
+``RawInflator``, ``Inflator`` and ``GzipInflator`` from
+``swift_png_tpu/lz77/inflate.py``).
 
 * push compressed bytes incrementally; decoding resumes where it starved
   (checkpoint and rollback at item granularity);
 * pull decompressed bytes (``pull(count)`` returns ``None`` until that
   many bytes exist);
 * formats ``zlib`` (RFC 1950 header and Adler-32) and ``ios`` (headerless
-  raw DEFLATE with no checksum, the CgBI framing).
+  raw DEFLATE with no checksum, the CgBI framing) in :class:`Inflator`,
+  ``gzip`` (RFC 1952 header and CRC-32) in :class:`GzipInflator`.
 
-``BatchCodec.decode_filtered(device_inflate=False)`` runs this engine.
+``BatchCodec.decode_filtered(device_inflate=False)`` and the single-image
+decoder (:mod:`swift_png_tpu_torch._host.png.decoder`) run this engine.
 """
 
 from __future__ import annotations
@@ -16,11 +19,12 @@ from __future__ import annotations
 import numpy as np
 
 from . import constants as C
-from .checksums import adler32
-from .errors import DecompressionError, StreamHeaderError
+from .checksums import adler32, crc32
+from .errors import (DecompressionError, GzipStreamHeaderError,
+                     StreamHeaderError)
 from .huffman import HuffmanError, decode_table
 
-__all__ = ["RawInflator", "Inflator"]
+__all__ = ["RawInflator", "Inflator", "GzipInflator"]
 
 
 class _Starved(Exception):
@@ -397,6 +401,118 @@ class Inflator:
             self._read_cursor += count
         self._integral = adler32(raw.release(self._read_cursor),
                                  self._integral)
+        return out
+
+    @property
+    def terminal(self) -> bool:
+        return self._state == "terminal"
+
+
+class GzipInflator:
+    """Streaming gzip inflate (``Gzip.Inflator``): the RFC 1952 header
+    (FEXTRA, FNAME and FCOMMENT skipped, FHCRC refused), the DEFLATE blocks
+    and the CRC-32 trailer (``Gzip.StreamHeader.swift:19-84``)."""
+
+    def __init__(self) -> None:
+        self._raw = RawInflator()
+        self._state = "initial"
+        self._read_cursor = 0
+        self._integral = 0  # CRC-32 folded over released output
+        self._skip = 0
+        self._strings = 0
+
+    def push(self, data: bytes) -> None:
+        self._raw.push(data)
+        self._advance()
+
+    def _advance(self) -> None:
+        raw = self._raw
+        if self._state == "initial":
+            if not self._read_header():
+                return
+        if self._state == "strings":
+            if not self._skip_strings():
+                return
+        if self._state == "block":
+            raw.advance()
+            if raw.done:
+                self._state = "checksum"
+        if self._state == "checksum":
+            aligned = (raw.bitpos + 7) & ~7
+            if raw.nbits - aligned >= 64:
+                raw.bitpos = aligned
+                base = raw.bitpos >> 3
+                declared = int.from_bytes(raw.data[base: base + 4], "little")
+                # ISIZE (the length modulo 2^32) is read past, not checked
+                raw.bitpos += 64
+                computed = crc32(raw.out, self._integral)
+                if computed != declared:
+                    raise DecompressionError.invalid_stream_checksum(
+                        declared, computed)
+                self._state = "terminal"
+
+    def _read_header(self) -> bool:
+        raw = self._raw
+        if raw.nbits - raw.bitpos < 80:
+            return False
+        base = raw.bitpos >> 3
+        hdr = raw.data[base: base + 10]
+        if hdr[0] != 0x1F or hdr[1] != 0x8B:
+            raise GzipStreamHeaderError.invalid_sigil()
+        if hdr[2] != 0x08:
+            raise GzipStreamHeaderError.invalid_compression_method(hdr[2])
+        flags = hdr[3]
+        if flags & 0b1110_0000:
+            raise GzipStreamHeaderError.invalid_flag_bits(flags)
+        if flags & 0x02:
+            raise GzipStreamHeaderError.header_checksum_unsupported()
+        xlen = 0
+        consumed = 80
+        if flags & 0x04:
+            if raw.nbits - raw.bitpos < 96:
+                return False
+            xlen = int.from_bytes(raw.data[base + 10: base + 12], "little")
+            consumed = 96
+        raw.bitpos += consumed
+        self._skip = 8 * xlen
+        self._strings = (1 if flags & 0x08 else 0) + (1 if flags & 0x10
+                                                      else 0)
+        self._state = "strings" if (self._skip or self._strings) else "block"
+        return True
+
+    def _skip_strings(self) -> bool:
+        raw = self._raw
+        if self._skip:
+            if raw.bitpos + self._skip > raw.nbits:
+                return False
+            raw.bitpos += self._skip
+            self._skip = 0
+        while self._strings:
+            # the NUL that ends FNAME or FCOMMENT
+            idx = raw.data.find(b"\x00", raw.bitpos >> 3)
+            if idx < 0:
+                return False
+            raw.bitpos = 8 * (idx + 1)
+            self._strings -= 1
+        self._state = "block"
+        return True
+
+    def pull(self, count: int | None = None) -> bytes | None:
+        """As :meth:`Inflator.pull`, with the CRC-32 folded over the
+        released output."""
+        raw = self._raw
+        start = self._read_cursor - raw.out_base
+        avail = raw.produced - self._read_cursor
+        if count is None:
+            out = bytes(raw.out[start:])
+            self._read_cursor = raw.produced
+        elif avail < count:
+            return None
+        else:
+            out = bytes(raw.out[start: start + count])
+            self._read_cursor += count
+        self._integral = crc32(raw.release(self._read_cursor),
+                               self._integral)
         return out
 
     @property

@@ -1,4 +1,5 @@
 """PNG host layer: chunk lexing and writing, the colour formats and
-layout, every chunk model, the ``Metadata`` of the ancillary chunks and
-the pre-IDAT writer (copies of the parts of ``swift_png_tpu/png`` that
-batched decode and encode read)."""
+layout, every chunk model, the ``Metadata`` of the ancillary chunks, the
+single-image ``Image`` with the pre-IDAT writer, the streaming
+``Context``, the scanline ``Decoder`` and ``Encoder`` and the file
+streams (copies of ``swift_png_tpu/png``)."""

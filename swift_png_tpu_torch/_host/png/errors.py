@@ -1,5 +1,6 @@
-"""PNG lexing and parsing errors (the lexing cases and every chunk
-model's parsing cases, copied from ``swift_png_tpu/png/errors.py``)."""
+"""PNG errors: the lexing cases, every chunk model's parsing cases, the
+decoder's chunk-order and image-data cases and the formatting case (copies
+of ``swift_png_tpu/png/errors.py``, with the same ``case`` names)."""
 
 from __future__ import annotations
 
@@ -107,3 +108,46 @@ for _name, _msg in [
     ("incompleteTextCompressedDatastream", "incomplete text datastream"),
 ]:
     setattr(ParsingError, _name, _parsing_case(_name, _msg))
+
+
+class DecodingError(PNGError):
+    """Chunk-order and image-data errors of the single-image decoder."""
+
+    namespace = "png.decoding error"
+
+    @classmethod
+    def required(cls, chunk: str, before: str):
+        return cls("required",
+                   f"required chunk {chunk} missing before {before}",
+                   chunk=chunk, before=before)
+
+    @classmethod
+    def duplicate(cls, chunk: str):
+        return cls("duplicate", f"duplicate chunk {chunk}", chunk=chunk)
+
+    @classmethod
+    def unexpected(cls, chunk: str, after: str):
+        return cls("unexpected", f"unexpected chunk {chunk} after {after}",
+                   chunk=chunk, after=after)
+
+    @classmethod
+    def extraneous_compressed_data(cls):
+        return cls("extraneousImageDataCompressedData",
+                   "extraneous compressed image data")
+
+    @classmethod
+    def extraneous_image_data(cls):
+        return cls("extraneousImageData", "extraneous image data")
+
+    @classmethod
+    def incomplete_compressed_datastream(cls):
+        return cls("incompleteImageDataCompressedDatastream",
+                   "incomplete compressed image datastream")
+
+
+class FormattingError(PNGError):
+    namespace = "png.formatting error"
+
+    @classmethod
+    def invalid_destination(cls):
+        return cls("invalidDestination", "failed to write to destination")

@@ -1,8 +1,9 @@
 """The two standards, the 15 standard pixel formats, the 17 colour
 formats and the image layout (copies of ``COMMON``, ``IOS``, ``Pixel``,
-``recognize_pixel``, ``Format`` and ``Layout`` from
+``recognize_pixel``, ``Format``, ``Layout`` and ``recognize`` from
 ``swift_png_tpu/png/format.py``).  ``Layout`` rebuilds the PLTE, tRNS and
-bKGD chunk models an encoder writes from its format."""
+bKGD chunk models an encoder writes from its format; ``recognize`` builds
+the format a decoder reads from those chunk models."""
 
 from __future__ import annotations
 
@@ -196,3 +197,54 @@ class Layout:
         if f.is_bgr:
             fill = (fill[2], fill[1], fill[0])
         return Background("rgb", fill)
+
+
+def recognize(standard: str, pixel: Pixel, palette, background,
+              transparency):
+    """Combine the PLTE, bKGD and tRNS chunk models (or ``None``) into a
+    colour format (``PNG.Format.recognize``, ``PNG.Format.swift:356-550``).
+    Returns ``None`` when an indexed image is missing its palette."""
+    ctype = pixel.color_type
+    if ctype == 0:  # grayscale
+        fill = background.value if background else None
+        key = transparency.value if transparency else None
+        return Format(pixel.name, (), fill, key)
+    if ctype == 2:  # rgb
+        entries = tuple(palette.entries) if palette else ()
+        fill = background.value if background else None
+        key = transparency.value if transparency else None
+        if standard == IOS and pixel.name == "rgb8":
+            entries = tuple((b, g, r) for (r, g, b) in entries)
+            fill = fill and (fill[2], fill[1], fill[0])
+            key = key and (key[2], key[1], key[0])
+            return Format("bgr8", entries, fill, key)
+        return Format(pixel.name, entries, fill, key)
+    if ctype == 3:  # indexed
+        if palette is None:
+            return None
+        fill = background.value if background else None
+        alpha = list(transparency.value) if transparency else []
+        if len(alpha) > len(palette.entries):
+            raise ParsingError.invalidTransparencyCount(
+                count=len(alpha), max=len(palette.entries))
+        rgba = tuple(
+            (r, g, b, alpha[i] if i < len(alpha) else 255)
+            for i, (r, g, b) in enumerate(palette.entries))
+        return Format(pixel.name, rgba, fill, None)
+    if ctype == 4:  # grayscale-alpha
+        if palette is not None:
+            raise ParsingError.unexpectedPalette(pixel=pixel.name)
+        if transparency is not None:
+            raise ParsingError.unexpectedTransparency(pixel=pixel.name)
+        fill = background.value if background else None
+        return Format(pixel.name, (), fill, None)
+    # ctype == 6: rgba
+    if transparency is not None:
+        raise ParsingError.unexpectedTransparency(pixel=pixel.name)
+    entries = tuple(palette.entries) if palette else ()
+    fill = background.value if background else None
+    if standard == IOS and pixel.name == "rgba8":
+        entries = tuple((b, g, r) for (r, g, b) in entries)
+        fill = fill and (fill[2], fill[1], fill[0])
+        return Format("bgra8", entries, fill, None)
+    return Format(pixel.name, entries, fill, None)

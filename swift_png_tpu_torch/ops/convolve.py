@@ -1,20 +1,24 @@
-"""Pixel convolve: defiltered scanlines → RGBA (plain PyTorch).
+"""Pixel convolve: defiltered scanlines → RGBA or VA (plain PyTorch).
 
-Counterpart of ``samples_from_rows``, ``rescale``, ``samples_to_rgba`` and
-``unpack_rgba`` in ``swift_png_tpu/ops/convolve.py``: big-endian 16-bit
-atoms, MSB-first sub-byte samples, exact depth rescale, per-image palette
-dereference and chroma keys; and ``pack_rows``, the encoder's way back
-from samples to scanline bytes.  Every function here takes a leading batch
-axis (the JAX versions are per image and vmapped by their caller).
-``is_bgr`` reads the iOS (CgBI) byte order, bgr8 and bgra8.
+Counterpart of ``samples_from_rows``, ``rescale``, ``samples_to_rgba``,
+``samples_to_va`` and ``unpack_rgba`` in ``swift_png_tpu/ops/convolve.py``:
+big-endian 16-bit atoms, MSB-first sub-byte samples, exact depth rescale,
+per-image palette dereference and chroma keys; ``pack_rows``, the
+encoder's way back from samples to scanline bytes; and the exact integer
+``premultiply`` and ``straighten``.  The sample functions take a leading
+batch axis (the JAX versions are per image and vmapped by their caller);
+``premultiply`` and ``straighten`` work elementwise on any shape.
+``is_bgr`` reads the iOS (CgBI) byte order, bgr8 and bgra8.  Each runs on
+the device of its input tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["samples_from_rows", "rescale", "samples_to_rgba", "unpack_rgba",
-           "pack_rows"]
+__all__ = ["samples_from_rows", "rescale", "samples_to_rgba",
+           "samples_to_va", "unpack_rgba", "pack_rows", "premultiply",
+           "straighten"]
 
 
 def quantum(source_depth: int, dest_bits: int) -> int:
@@ -100,6 +104,64 @@ def samples_to_rgba(raw: torch.Tensor, *, depth: int, channels: int,
     else:
         out = scaled[..., _BGRA] if is_bgr else scaled
     return out.to(_dtype(bits))
+
+
+def samples_to_va(raw: torch.Tensor, *, depth: int, channels: int,
+                  is_bgr: bool = False, is_indexed: bool = False,
+                  has_key: bool = False,
+                  palette: torch.Tensor | None = None,
+                  key: torch.Tensor | None = None,
+                  bits: int = 8) -> torch.Tensor:
+    """Raw samples ``(B, H, W, C)`` int32 → ``(B, H, W, 2)`` value–alpha at
+    ``bits``: the colour kinds give their r channel as the value, palettes
+    their (r, alpha) entries.  ``palette`` and ``key`` as in
+    :func:`samples_to_rgba`."""
+    tmax = (1 << bits) - 1
+    B, H, W = raw.shape[:3]
+    if is_indexed:
+        idx = raw[..., 0].reshape(B, H * W, 1).long().expand(-1, -1, 2)
+        gathered = palette[..., [0, 3]].to(torch.int32).gather(1, idx)
+        return rescale(gathered.reshape(B, H, W, 2), 8, bits)
+    scaled = rescale(raw, depth, bits).to(torch.int32)
+    opaque = torch.full((B, H, W), tmax, dtype=torch.int32,
+                        device=raw.device)
+    if channels == 1:
+        v = scaled[..., 0]
+        alpha = opaque
+        if has_key:
+            alpha = torch.where(raw[..., 0] == key[:, 0, None, None], 0,
+                                tmax)
+    elif channels == 2:
+        v, alpha = scaled[..., 0], scaled[..., 1]
+    elif channels == 3:
+        v = scaled[..., 2] if is_bgr else scaled[..., 0]
+        alpha = opaque
+        if has_key:
+            hit = (raw == key[:, None, None, :]).all(-1)
+            alpha = torch.where(hit, 0, tmax)
+    else:
+        v = scaled[..., 2] if is_bgr else scaled[..., 0]
+        alpha = scaled[..., 3]
+    return torch.stack([v, alpha], dim=-1).to(_dtype(bits))
+
+
+def premultiply(color: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Exact integer premultiply of uint8 or uint16 samples:
+    ``(color·alpha + max//2) // max``."""
+    tmax = 255 if color.dtype == torch.uint8 else 65535
+    product = color.to(torch.int64) * alpha.to(torch.int64) + (tmax >> 1)
+    return (product // tmax).to(color.dtype)
+
+
+def straighten(premultiplied: torch.Tensor,
+               alpha: torch.Tensor) -> torch.Tensor:
+    """Exact integer straighten of uint8 or uint16 samples:
+    ``(max·color + alpha//2) // alpha``, the input where alpha is 0."""
+    tmax = 255 if premultiplied.dtype == torch.uint8 else 65535
+    a = alpha.to(torch.int64)
+    c = premultiplied.to(torch.int64)
+    out = (tmax * c + (a >> 1)) // a.clamp(min=1)
+    return torch.where(a == 0, c, out).to(premultiplied.dtype)
 
 
 def pack_rows(samples: torch.Tensor, depth: int, channels: int,

@@ -13,19 +13,9 @@ from __future__ import annotations
 
 import torch
 
+from .._host.png.decoder import ADAM7
 from .convolve import samples_from_rows
 from .unfilter import defilter_batch
-
-#: Adam7 ((base x, base y), (stride x, stride y)), pass by pass
-ADAM7 = (
-    ((0, 0), (8, 8)),
-    ((4, 0), (8, 8)),
-    ((0, 4), (4, 8)),
-    ((2, 0), (4, 4)),
-    ((0, 2), (2, 4)),
-    ((1, 0), (2, 2)),
-    ((0, 1), (1, 2)),
-)
 
 __all__ = ["ADAM7", "pass_geometry", "deinterlace_samples"]
 

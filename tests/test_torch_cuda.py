@@ -631,3 +631,52 @@ def test_one_rank_nccl_mesh_matches_no_mesh(nccl_mesh, call):
         rows = torch.from_numpy(px.reshape(3, 40, 56 * 4)).cuda()
         assert torch.equal(filter_select_sharded(nccl_mesh, rows, 4),
                            filter_select_batch(rows, 4))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_convolve_twins_on_card_match_cpu(cuda, bits):
+    """``samples_to_va`` (plain, keyed, indexed), ``premultiply`` and
+    ``straighten`` on the card equal the same calls on the CPU."""
+    from swift_png_tpu_torch.ops import convolve
+
+    rng = np.random.default_rng(bits)
+    dt = torch.uint8 if bits == 8 else torch.uint16
+    raw = torch.from_numpy(rng.integers(0, 1 << 16, (2, 33, 47, 4),
+                                        dtype=np.int64).astype(np.int32))
+    pal = torch.from_numpy(rng.integers(0, 256, (2, 256, 4), dtype=np.int64))
+    key = raw[:, 0, 0, :3].clone()
+    cases = [dict(raw=raw, depth=16, channels=4),
+             dict(raw=raw[..., :3], depth=16, channels=3, has_key=True,
+                  key=key),
+             dict(raw=raw[..., :3] >> 8, depth=8, channels=3, is_bgr=True),
+             dict(raw=raw[..., :1] >> 8, depth=8, channels=1,
+                  is_indexed=True, palette=pal)]
+    for kw in cases:
+        on_card = {k: v.to(cuda) if torch.is_tensor(v) else v
+                   for k, v in kw.items()}
+        want = convolve.samples_to_va(kw.pop("raw"), bits=bits, **kw)
+        got = convolve.samples_to_va(on_card.pop("raw"), bits=bits,
+                                     **on_card)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    c = (raw[..., :3] >> (16 - bits)).to(dt)
+    a = (raw[..., 3:] >> (16 - bits)).to(dt).expand_as(c)
+    for fn in (convolve.premultiply, convolve.straighten):
+        got = fn(c.to(cuda), a.to(cuda))
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), fn(c, a))
+
+
+@pytest.mark.parametrize("config", ["rgba8", "adam7", "cgbi"])
+def test_single_image_decode_matches_batch_decode_on_card(cuda, config):
+    """``Image.decompress_bytes(p).unpack_rgba8()`` (host) equals
+    ``BatchCodec().decode([p])`` on the card, and the source."""
+    from swift_png_tpu_torch.png import Image
+
+    px = chip_smoke.bench_image(3, 40, 56)
+    p = chip_smoke.general_png(px, config)
+    host = Image.decompress_bytes(p).unpack_rgba8()
+    card = BatchCodec().decode([p], keep_on_device=True)
+    assert card.device.type == "cuda"
+    assert np.array_equal(card[0].cpu().numpy(), host)
+    assert np.array_equal(host, px)
