@@ -53,7 +53,13 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
   in 4,096-byte pieces; gzip both ways with Python's ``gzip``; every
   subcommand of ``python -m swift_png_tpu_torch`` in a subprocess; and the
   convolve twins ``samples_to_va``, ``premultiply`` and ``straighten`` on
-  the card against the CPU.
+  the card against the CPU;
+* the port's copies of the JAX package's examples (``examples``):
+  ``indexed_decode.main()`` (K1, the tail, K3) and ``batch_decode_cuda.
+  main`` on 8 bench images as ordinary PNGs over a one-rank NCCL mesh
+  (the fused inflate, K3), each with no device named and exact against
+  its source; then the nine host examples as ``python -m
+  swift_png_tpu_torch.examples.<name>`` subprocesses at once.
 
 It builds the port's native host library (``swift_png_tpu_torch/_host/
 native``, ``g++``) beside the kernels and fails when the library is not
@@ -2332,6 +2338,114 @@ def host_api_phase(dev) -> None:
          card_ms=card_ms, equal=True)
 
 
+EX_IMAGES = 8           # bench images decoded by batch_decode_cuda
+EX_HOST_SIZE = 128      # side of the image the host examples read
+EX_HOST = {             # each host example's arguments, in the phase's dir
+    "basic_encoding": ["basic"], "custom_color": ["in.png", "value.png"],
+    "decode_basic": ["in.png"], "gzip_tool": ["c", "in.png", "in.png.gz"],
+    "image_metadata": ["in.png", "metadata.png"],
+    "indexing": ["in.png", "indexed.png"],
+    "iphone_optimized": ["in.png", "ios"], "online_decoding": ["in.png"],
+    "streaming_zlib": ["in.png"]}
+
+
+def examples_phase(dev) -> dict:
+    """The port's copies of the JAX package's examples
+    (``swift_png_tpu_torch.examples``).  First the two device examples run
+    in this process with no device named, each with the launch counts set
+    to 0 just before it: ``indexed_decode.main()`` (``decode_indexed`` of
+    four 64×64 indexed PNGs: K1, the tail, K3) and ``batch_decode_cuda.
+    main`` on 8 of the bench images at 512×512 as ordinary PNGs
+    (``CorpusDecoder`` over a one-rank NCCL mesh from ``global_mesh()``,
+    torn down after: the fused inflate, K3).  Every decoded image must
+    equal its source.  Then the nine host examples start at once, each as
+    ``python -m swift_png_tpu_torch.examples.<name>`` on a 128×128 bench
+    image, and must exit cleanly (gzip_tool's archive is read back with
+    Python's ``gzip``)."""
+    import gzip
+    import importlib
+    import tempfile
+
+    from swift_png_tpu_torch import _kernels
+    from swift_png_tpu_torch.parallel.distributed import shutdown
+    from swift_png_tpu_torch.png import Image
+
+    t_phase = time.perf_counter()
+    line = dict(phase="examples")
+    ex = {name: importlib.import_module(f"swift_png_tpu_torch.examples.{name}")
+          for name in ("indexed_decode", "batch_decode_cuda")}
+    ms, launches = {}, {}
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    files, got = ex["indexed_decode"].main()
+    ms["indexed_decode"] = (time.perf_counter() - t0) * 1e3
+    launches["indexed_decode"] = _kernels.launch_counts()
+    want = [Image.decompress_bytes(f).unpack_rgba8() for f in files]
+    if not np.array_equal(got, np.stack(want)):
+        fail("examples: indexed_decode's pixels differ")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = [bench_image(s) for s in range(EX_IMAGES)]
+        paths = [os.path.join(tmp, f"bench{s}.png") for s in range(EX_IMAGES)]
+        for path, px in zip(paths, images):
+            with open(path, "wb") as f:
+                f.write(general_png(px, "rgba8"))
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            decoded = ex["batch_decode_cuda"].main(paths)
+            ms["batch_decode_cuda"] = (time.perf_counter() - t0) * 1e3
+            launches["batch_decode_cuda"] = _kernels.launch_counts()
+            line.update(backend=torch.distributed.get_backend())
+        finally:
+            shutdown()
+        if line["backend"] != "nccl":
+            fail(f"examples: batch_decode_cuda's group is "
+                 f"{line['backend']}, not NCCL")
+        if len(decoded) != EX_IMAGES or any(
+                not np.array_equal(g, w) for g, w in zip(decoded, images)):
+            fail("examples: batch_decode_cuda's pixels differ from the "
+                 "source")
+
+        with open(os.path.join(tmp, "in.png"), "wb") as f:
+            f.write(general_png(bench_image(0, EX_HOST_SIZE, EX_HOST_SIZE),
+                                "rgba8"))
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", f"swift_png_tpu_torch.examples.{name}",
+             *args], cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for name, args in EX_HOST.items()}
+        try:
+            for name, p in procs.items():
+                _, err = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    fail(f"examples: {name} exited {p.returncode}: {err}")
+        finally:
+            for p in procs.values():
+                p.kill()
+                p.wait()
+        ms["host_examples"] = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(tmp, "in.png"), "rb") as f, \
+                open(os.path.join(tmp, "in.png.gz"), "rb") as g:
+            if gzip.decompress(g.read()) != f.read():
+                fail("examples: gzip_tool's archive does not read back")
+    for name, kernels in (("indexed_decode", ("decode_stamp", "defilter")),
+                          ("batch_decode_cuda", ("defilter",))):
+        for k in kernels:
+            if launches[name][k] < 1:
+                fail(f"kernel {k} was not launched by the {name} example")
+    line.update(ms=ms, launches=launches, host_examples=list(EX_HOST),
+                images={"indexed_decode": list(got.shape),
+                        "batch_decode_cuda": [EX_IMAGES, H, W, 4]},
+                pixels_equal=True,
+                phase_ms=(time.perf_counter() - t_phase) * 1e3)
+    emit(**line)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2590,6 +2704,7 @@ def main() -> int:
     encode_metadata_case(dev)
     scale = scale_out_path(dev)
     host_api_phase(dev)
+    ex_launches = examples_phase(dev)
     enc_err = {k: max([c[f"{k}_max_abs_err"] for c in checks]
                       + [g["errs"].get(k, 0) for g in general.values()])
                for k in ("k4", "k5", "k6")}
@@ -2641,7 +2756,9 @@ def main() -> int:
              launches=launches["decode_stamp"],
              launches_by_path={"main_path": launches["decode_stamp"],
                                "scale_out":
-                                   scale["launches"]["decode_stamp"]},
+                                   scale["launches"]["decode_stamp"],
+                               "examples": ex_launches["indexed_decode"][
+                                   "decode_stamp"]},
              max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
              bound_by=k1_by, library_ms=None),
@@ -2650,7 +2767,10 @@ def main() -> int:
              replaces="swift_png_tpu/ops/unfilter_pallas.py:39",
              launches=launches["defilter"],
              launches_by_path={"main_path": launches["defilter"],
-                               "scale_out": scale["launches"]["defilter"]},
+                               "scale_out": scale["launches"]["defilter"],
+                               "examples": sum(
+                                   c["defilter"]
+                                   for c in ex_launches.values())},
              max_abs_err=k3_err,
              ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
              bound_by=k3_by, library_ms=None),
@@ -2661,7 +2781,9 @@ def main() -> int:
                       "tools/exp_seqcopy.py:39",
              launches=k2["launches"],
              launches_by_path={"records": k2["launches"],
-                               "scale_out": scale["launches"]["seqcopy"]},
+                               "scale_out": scale["launches"]["seqcopy"],
+                               "examples": ex_launches["indexed_decode"][
+                                   "seqcopy"]},
              max_abs_err=k2_err, ms=k2["ms"],
              plain_ms=k2["plain_ms"],
              bound_ms=k2["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",

@@ -17,8 +17,19 @@ streaming API (:mod:`.png`: ``Image``, ``Context``), the sequential codec
 with gzip (:mod:`.lz77`), the colour targets (:mod:`.models`), metadata
 dumps (:mod:`.inspection`) and the command line, ``python -m
 swift_png_tpu_torch``.
+
+Every module path of the JAX package that the port serves imports here
+too (``swift_png_tpu_torch.png.format``, ``.lz77.gzip``, ``.native``,
+``.utils.bits``, …), and :mod:`.examples` holds the JAX package's examples
+run against the port.
 """
 
+from . import lz77, png  # noqa: F401
+from ._host import native, publish
 from .parallel.batch import BatchCodec, decode_indexed
+
+__version__ = "0.1.0"
+
+publish(__name__, native)
 
 __all__ = ["BatchCodec", "decode_indexed"]

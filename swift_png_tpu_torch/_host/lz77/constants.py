@@ -34,7 +34,9 @@ CODELENGTH_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2,
                     14, 1, 15)
 
 MAX_RUN = 258
+MIN_RUN = 3
 MAX_DISTANCE = 32768
+WINDOW_SIZE = 32768
 
 # fixed Huffman code lengths (RFC 1951 §3.2.6)
 FIXED_LITERAL_LENGTHS = np.array([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8,

@@ -16,6 +16,8 @@ decoder (:mod:`swift_png_tpu_torch._host.png.decoder`) run this engine.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from . import constants as C
@@ -24,7 +26,12 @@ from .errors import (DecompressionError, GzipStreamHeaderError,
                      StreamHeaderError)
 from .huffman import HuffmanError, decode_table
 
-__all__ = ["RawInflator", "Inflator", "GzipInflator"]
+__all__ = ["DUMP_STATS", "RawInflator", "Inflator", "GzipInflator"]
+
+#: set ``SPT_DUMP_LZ77_STATS=1`` to count each stream's blocks, literals,
+#: matches and run and distance decades, and print them when a zlib
+#: stream's checksum has been checked
+DUMP_STATS = bool(os.environ.get("SPT_DUMP_LZ77_STATS"))
 
 
 class _Starved(Exception):
@@ -63,6 +70,20 @@ class RawInflator:
         # persisted mid-block state (compressed blocks)
         self._block: tuple | None = None  # (final, litlut, litmax, distlut, distmax)
         self._stored: tuple | None = None  # (final, end)
+        if DUMP_STATS:
+            self.stats = {"literals": 0, "matches": 0, "match_bytes": 0,
+                          "blocks": 0, "run_decades": np.zeros(29, np.int64),
+                          "dist_decades": np.zeros(30, np.int64)}
+
+    def dump_stats(self) -> None:
+        """Print the stream's token statistics (``DUMP_STATS``)."""
+        s = self.stats
+        total = s["literals"] + s["match_bytes"]
+        print(f"[lz77] blocks={s['blocks']} literals={s['literals']} "
+              f"matches={s['matches']} match_bytes={s['match_bytes']} "
+              f"({100 * s['match_bytes'] / max(total, 1):.1f}% matched)")
+        print(f"[lz77] run decades:  {s['run_decades'].tolist()}")
+        print(f"[lz77] dist decades: {s['dist_decades'].tolist()}")
 
     # -- input management ---------------------------------------------------
 
@@ -157,6 +178,8 @@ class RawInflator:
             self._read_dynamic_tables(final)
         else:
             raise DecompressionError.invalid_block_type_code(btype)
+        if DUMP_STATS:
+            self.stats["blocks"] += 1
 
     def _read_dynamic_tables(self, final: int) -> None:
         hlit = self._read(5) + 257
@@ -257,6 +280,7 @@ class RawInflator:
         run_extra = C.RUN_EXTRA
         dist_base = C.DISTANCE_BASE
         dist_extra = C.DISTANCE_EXTRA
+        stats = self.stats if DUMP_STATS else None
         try:
             while True:
                 start = pos
@@ -273,6 +297,8 @@ class RawInflator:
                 if sym < 256:
                     pos += l
                     out.append(sym)
+                    if stats is not None:
+                        stats["literals"] += 1
                     continue
                 if sym == 256:
                     pos += l
@@ -306,6 +332,11 @@ class RawInflator:
                     return False
                 distance = int(dist_base[dsym]) + (window & ((1 << db) - 1))
                 pos = start + consumed
+                if stats is not None:
+                    stats["matches"] += 1
+                    stats["match_bytes"] += run
+                    stats["run_decades"][decade] += 1
+                    stats["dist_decades"][dsym] += 1
                 n = len(out)
                 if distance > n + self.out_base:
                     raise DecompressionError.invalid_string_reference()
@@ -365,6 +396,8 @@ class Inflator:
                 if computed != declared:
                     raise DecompressionError.invalid_stream_checksum(
                         declared, computed)
+                if DUMP_STATS:
+                    raw.dump_stats()
                 self._state = "terminal"
 
     def _read_zlib_header(self) -> None:

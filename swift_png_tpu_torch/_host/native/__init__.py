@@ -11,7 +11,8 @@ checksums.
 
 The library builds at first use with ``g++`` into the package's
 ``_build/`` directory, or ahead of time with ``python -m
-swift_png_tpu_torch._host.native.build``.  :func:`available` is false when
+swift_png_tpu_torch.native.build`` (``swift_png_tpu_torch.native`` is this
+module).  :func:`available` is false when
 it cannot be built or loaded (:func:`last_error` then says why); callers
 read it through this module, so a test can switch the tier off by
 monkeypatching it.

@@ -1,5 +1,5 @@
 """Build the port's native host library:
-``python -m swift_png_tpu_torch._host.native.build``.
+``python -m swift_png_tpu_torch.native.build``.
 
 The library lands in the package's git-ignored ``_build/`` directory, beside
 the CUDA kernels' libraries.  The loader builds it at first use when it is

@@ -8,7 +8,7 @@
 // match search :115-212, PNG.Decoder.defilter :152-196).  No external
 // libraries; exact same stream semantics as the Python tier.
 //
-// Build: python -m swift_png_tpu_torch._host.native.build
+// Build: python -m swift_png_tpu_torch.native.build
 
 #include <cstdint>
 #include <cstring>

@@ -1,10 +1,11 @@
 """PNG container lexing and writing: signature, chunk framing, CRC-32
 (``ByteSource`` and ``ByteDestination`` of ``swift_png_tpu/png/chunk.py``;
-the CRC is stdlib ``zlib.crc32``)."""
+the CRC is stdlib ``zlib.crc32``, served as ``crc32`` as the JAX module
+serves its own)."""
 
 from __future__ import annotations
 
-import zlib
+from zlib import crc32
 
 from .errors import LexingError
 
@@ -79,7 +80,7 @@ class ByteSource:
         if body is None:
             raise LexingError.truncated_chunk_body(length + 4)
         data, declared = body[:length], int.from_bytes(body[length:], "big")
-        computed = zlib.crc32(header[4:8] + data)
+        computed = crc32(header[4:8] + data)
         if computed != declared:
             raise LexingError.invalid_chunk_checksum(declared, computed)
         return name, data
@@ -103,7 +104,7 @@ class ByteDestination:
         self.write(len(data).to_bytes(4, "big"))
         self.write(name)
         self.write(data)
-        self.write(zlib.crc32(name + data).to_bytes(4, "big"))
+        self.write(crc32(name + data).to_bytes(4, "big"))
 
     def getvalue(self) -> bytes:
         return b"".join(self.chunks)

@@ -1,6 +1,7 @@
 """The two standards, the 15 standard pixel formats, the 17 colour
-formats and the image layout (copies of ``COMMON``, ``IOS``, ``Pixel``,
-``recognize_pixel``, ``Format``, ``Layout`` and ``recognize`` from
+formats and the image layout (copies of ``COMMON``, ``IOS``, ``Pixel``
+with its 15 constants ``V1`` … ``RGBA16``, ``recognize_pixel``,
+``Format``, ``Layout`` and ``recognize`` from
 ``swift_png_tpu/png/format.py``).  ``Layout`` rebuilds the PLTE, tRNS and
 bKGD chunk models an encoder writes from its format; ``recognize`` builds
 the format a decoder reads from those chunk models."""
@@ -40,16 +41,26 @@ class Pixel:
         return self.color_type == 3
 
 
+V1 = Pixel("v1", 1, 1, 0)
+V2 = Pixel("v2", 2, 1, 0)
+V4 = Pixel("v4", 4, 1, 0)
+V8 = Pixel("v8", 8, 1, 0)
+V16 = Pixel("v16", 16, 1, 0)
+RGB8 = Pixel("rgb8", 8, 3, 2)
+RGB16 = Pixel("rgb16", 16, 3, 2)
+INDEXED1 = Pixel("indexed1", 1, 1, 3)
+INDEXED2 = Pixel("indexed2", 2, 1, 3)
+INDEXED4 = Pixel("indexed4", 4, 1, 3)
+INDEXED8 = Pixel("indexed8", 8, 1, 3)
+VA8 = Pixel("va8", 8, 2, 4)
+VA16 = Pixel("va16", 16, 2, 4)
+RGBA8 = Pixel("rgba8", 8, 4, 6)
+RGBA16 = Pixel("rgba16", 16, 4, 6)
+
 _PIXELS = {
     p.code: p
-    for p in (Pixel("v1", 1, 1, 0), Pixel("v2", 2, 1, 0),
-              Pixel("v4", 4, 1, 0), Pixel("v8", 8, 1, 0),
-              Pixel("v16", 16, 1, 0), Pixel("rgb8", 8, 3, 2),
-              Pixel("rgb16", 16, 3, 2), Pixel("indexed1", 1, 1, 3),
-              Pixel("indexed2", 2, 1, 3), Pixel("indexed4", 4, 1, 3),
-              Pixel("indexed8", 8, 1, 3), Pixel("va8", 8, 2, 4),
-              Pixel("va16", 16, 2, 4), Pixel("rgba8", 8, 4, 6),
-              Pixel("rgba16", 16, 4, 6))
+    for p in (V1, V2, V4, V8, V16, RGB8, RGB16, INDEXED1, INDEXED2, INDEXED4,
+              INDEXED8, VA8, VA16, RGBA8, RGBA16)
 }
 
 

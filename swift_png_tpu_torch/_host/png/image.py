@@ -24,7 +24,7 @@ from ..models import RGBA
 from . import chunk as chunks
 from . import parsing
 from .chunk import ByteDestination, ByteSource
-from .decoder import adam7_subimage
+from .decoder import ADAM7, adam7_subimage  # noqa: F401
 from .encoder import Encoder
 from .errors import DecodingError
 from .format import COMMON, IOS, Layout, recognize

@@ -31,8 +31,16 @@ __all__ = ["initialize", "global_mesh", "shutdown", "free_port",
            "combine_adler_shards", "combine_crc_shards"]
 
 
-def _backend() -> str:
-    return "nccl" if torch.cuda.is_available() else "gloo"
+def _backend(backend: str | None) -> str:
+    """The backend a job runs on: NCCL unless the caller names another.
+    With none named and no GPU present this raises: a missing card is
+    never hidden by a quiet run on the CPU."""
+    if backend is not None:
+        return backend
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass backend='gloo' to run the "
+                           "job on the CPU")
+    return "nccl"
 
 
 def free_port() -> int:
@@ -50,13 +58,14 @@ def initialize(coordinator_address: str | None = None,
     one process or none, as in the JAX package).
 
     The rendezvous is ``tcp://<coordinator_address>`` (``host:port``).
-    ``backend``: NCCL when CUDA is present, gloo otherwise, unless the
-    caller names one.  Under NCCL the process takes the GPU of its local
-    rank (``process_id`` modulo the host's GPUs) as its current device.
+    ``backend``: NCCL unless the caller names another (``"gloo"`` for
+    CPU processes); with none named and no GPU present this raises.
+    Under NCCL the process takes the GPU of its local rank
+    (``process_id`` modulo the host's GPUs) as its current device.
     """
     if num_processes is None or num_processes <= 1:
         return
-    backend = backend or _backend()
+    backend = _backend(backend)
     if backend == "nccl":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(backend,
@@ -71,18 +80,20 @@ def shutdown() -> None:
 
 
 def global_mesh(images_axis: str = "images", rows_axis: str = "rows",
-                rows: int = 1) -> DeviceMesh:
+                rows: int = 1, backend: str | None = None) -> DeviceMesh:
     """An ``(images × rows)`` mesh of ``(world // rows, rows)`` over every
     process of the job, one device each.
 
     In a process that has joined no job, this first sets up a one-process
-    group on a free local port (NCCL when CUDA is present, gloo
-    otherwise), so that ``global_mesh()`` works in one process as the JAX
-    package's does; :func:`shutdown` ends it.  The mesh's device type is
+    group on a free local port, so that ``global_mesh()`` works in one
+    process as the JAX package's does; :func:`shutdown` ends it.  Its
+    ``backend`` is NCCL unless the caller names another (``"gloo"`` for
+    the CPU); with none named and no GPU present this raises.  Inside a
+    job the mesh keeps the job's backend.  The mesh's device type is
     ``cuda`` under NCCL and ``cpu`` under gloo.
     """
     if not dist.is_initialized():
-        backend = _backend()
+        backend = _backend(backend)
         if backend == "nccl":
             torch.cuda.set_device(0)
         dist.init_process_group(

@@ -2,8 +2,8 @@
 
 Counterpart of ``dryrun_multichip`` in the JAX package's
 ``__graft_entry__.py``.  :func:`dryrun_multichip` spawns one process per
-rank, joins them into one job (NCCL when the host has a GPU for each
-rank, gloo otherwise), and each rank runs :func:`dryrun_step` on an
+rank, joins them into one job (NCCL, one GPU a rank, unless the caller
+names gloo), and each rank runs :func:`dryrun_step` on an
 ``(images × rows)`` mesh, ``rows`` = 2 when the rank count is even:
 
 * the decode stage (K3 defilter, convolve) on its block of images;
@@ -67,12 +67,13 @@ def _score(refiltered: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 127, x - 256, x).abs().sum()
 
 
-def dryrun_step(n_ranks: int, inputs) -> dict:
+def dryrun_step(n_ranks: int, inputs, backend: str | None = None) -> dict:
     """One rank's codec step on a mesh of ``n_ranks`` (see the module
-    docstring); raises on any disagreement with the unsharded work."""
+    docstring); raises on any disagreement with the unsharded work.
+    ``backend`` sets up the one-rank group when there is no job."""
     rows_dim = 2 if n_ranks % 2 == 0 and n_ranks > 1 else 1
     images_dim = n_ranks // rows_dim
-    mesh = global_mesh(rows=rows_dim)
+    mesh = global_mesh(rows=rows_dim, backend=backend)
     dev = mesh_device(mesh)
     B, H, W = images_dim * 2, rows_dim * 8, 16
     filtered = torch.from_numpy(example_batch(B, H, W, seed=1)).to(dev)
@@ -121,7 +122,7 @@ def _rank_main(rank: int, n_ranks: int, coordinator: str, backend: str,
     try:
         torch.set_num_threads(1)
         initialize(coordinator, n_ranks, rank, backend=backend)
-        results.put((rank, None, dryrun_step(n_ranks, inputs)))
+        results.put((rank, None, dryrun_step(n_ranks, inputs, backend)))
     except BaseException:
         results.put((rank, traceback.format_exc(), None))
         raise
@@ -129,15 +130,23 @@ def _rank_main(rank: int, n_ranks: int, coordinator: str, backend: str,
         shutdown()
 
 
-def dryrun_multichip(n_ranks: int, timeout: float = 300.0) -> list[dict]:
+def dryrun_multichip(n_ranks: int, timeout: float = 300.0,
+                     backend: str | None = None) -> list[dict]:
     """Run :func:`dryrun_step` in ``n_ranks`` spawned processes, one job;
-    return each rank's summary.  Raises when a rank fails, dies or is not
-    done within ``timeout`` seconds; every process is gone on return.
-    The processes start by ``spawn``, which imports the caller's main
-    module again: a script calls this under ``if __name__ ==
-    "__main__"``."""
-    backend = ("nccl" if torch.cuda.is_available()
-               and torch.cuda.device_count() >= n_ranks else "gloo")
+    return each rank's summary.  ``backend``: NCCL, one GPU a rank, unless
+    the caller names another (``"gloo"`` for CPU processes); with none
+    named and fewer GPUs than ranks this raises.  Raises when a rank
+    fails, dies or is not done within ``timeout`` seconds; every process
+    is gone on return.  The processes start by ``spawn``, which imports
+    the caller's main module again: a script calls this under ``if
+    __name__ == "__main__"``."""
+    if backend is None:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < n_ranks:
+            raise RuntimeError(f"{cards} CUDA devices for {n_ranks} ranks; "
+                               f"pass backend='gloo' to run the job on the "
+                               f"CPU")
+        backend = "nccl"
     inputs = indexed_inputs()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()

@@ -680,3 +680,35 @@ def test_single_image_decode_matches_batch_decode_on_card(cuda, config):
     assert card.device.type == "cuda"
     assert np.array_equal(card[0].cpu().numpy(), host)
     assert np.array_equal(host, px)
+
+
+@pytest.mark.parametrize("name", ["indexed_decode", "batch_decode_cuda"])
+def test_device_examples_run_on_card(cuda, name, tmp_path):
+    """The two device examples with no device named: pixels exact, K1 and
+    K3 launched by ``indexed_decode``, K3 by ``batch_decode_cuda`` (on a
+    one-rank NCCL mesh from ``global_mesh()``, torn down after)."""
+    import importlib
+
+    from swift_png_tpu_torch.parallel.distributed import shutdown
+    from swift_png_tpu_torch.png import Image
+
+    example = importlib.import_module(f"swift_png_tpu_torch.examples.{name}")
+    _kernels.reset_launches()
+    if name == "indexed_decode":
+        files, got = example.main()
+        want = [Image.decompress_bytes(f).unpack_rgba8() for f in files]
+        launched = ("decode_stamp", "defilter")
+    else:
+        want = [chip_smoke.bench_image(s, 40, 56) for s in range(3)]
+        paths = [str(tmp_path / f"{s}.png") for s in range(3)]
+        for path, px in zip(paths, want):
+            open(path, "wb").write(chip_smoke.general_png(px, "rgba8"))
+        try:
+            got = example.main(paths)
+            assert torch.distributed.get_backend() == "nccl"
+        finally:
+            shutdown()
+        launched = ("defilter",)
+    assert np.array_equal(np.stack(got), np.stack(want))
+    counts = _kernels.launch_counts()
+    assert all(counts[k] >= 1 for k in launched), counts

@@ -122,6 +122,17 @@ import swift_png_tpu_torch
 for m in pkgutil.walk_packages(swift_png_tpu_torch.__path__,
                                "swift_png_tpu_torch."):
     importlib.import_module(m.name)
+# the public paths served from _host/, which the walk does not see
+public = (["png." + m for m in ("chunk", "context", "decoder", "encoder",
+                                "errors", "format", "image", "metadata",
+                                "parsing", "system")]
+          + ["lz77." + m for m in ("checksums", "constants", "deflate",
+                                   "errors", "gzip", "huffman", "index",
+                                   "inflate")]
+          + ["models." + m for m in ("color", "rgba", "v", "va")]
+          + ["native", "native.build", "utils.bits", "examples"])
+for m in public:
+    importlib.import_module("swift_png_tpu_torch." + m)
 import chip_smoke
 from swift_png_tpu_torch._host.lz77.index import build_index
 chip_smoke.H, chip_smoke.W = 8, 8

@@ -71,7 +71,7 @@ coord, n, rank, folder = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
     sys.argv[4]
 with open(f"{folder}/inputs.pkl", "rb") as f:
     inp = pickle.load(f)
-initialize(coord, n, rank)
+initialize(coord, n, rank, backend="gloo")
 try:
     out = {"world": dist.get_world_size(), "rank": dist.get_rank()}
     # an all_reduce over the job, and the Adler-32 of a stream whose
@@ -330,7 +330,7 @@ def test_shard_buckets_partition_the_buckets(two):
 
 
 def test_dryrun_multichip_four_ranks():
-    out = dryrun_multichip(4, timeout=DEADLINE)
+    out = dryrun_multichip(4, timeout=DEADLINE, backend="gloo")
     assert [r["rank"] for r in out] == [0, 1, 2, 3]
     assert {tuple(r["mesh"]) for r in out} == {(2, 2)}
     assert len({r["score"] for r in out}) == 1
@@ -340,5 +340,5 @@ def test_dryrun_past_its_deadline_raises_and_ends_its_ranks():
     import multiprocessing
 
     with pytest.raises(TimeoutError, match="not done in"):
-        dryrun_multichip(2, timeout=0.5)
+        dryrun_multichip(2, timeout=0.5, backend="gloo")
     assert not multiprocessing.active_children()

@@ -239,7 +239,7 @@ def test_corpus_decoder_matches_jax(batch_size, bits):
 @pytest.fixture
 def one_rank_mesh():
     assert not torch.distributed.is_initialized()
-    mesh = distributed.global_mesh()
+    mesh = distributed.global_mesh(backend="gloo")
     try:
         yield mesh
     finally:
@@ -271,7 +271,26 @@ def test_one_rank_mesh_equals_no_mesh(one_rank_mesh):
 def test_global_mesh_rows_must_divide_the_world(one_rank_mesh):
     with pytest.raises(ValueError, match="1 devices not divisible into "
                                          "2 row shards"):
-        distributed.global_mesh(rows=2)
+        distributed.global_mesh(rows=2, backend="gloo")
+
+
+@pytest.mark.parametrize("call", ["global_mesh", "initialize",
+                                  "dryrun_multichip"])
+def test_no_backend_named_raises_without_a_card(call):
+    """With no backend named, the mesh set-up takes NCCL on ``cuda``; on a
+    host without a card it raises, and sets up no group, where it once
+    fell back to gloo and the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: NCCL is the default")
+    from swift_png_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    addr = f"127.0.0.1:{distributed.free_port()}"
+    run = {"global_mesh": distributed.global_mesh,
+           "initialize": lambda: distributed.initialize(addr, 2, 0),
+           "dryrun_multichip": lambda: dryrun_multichip(2, timeout=30)}[call]
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        run()
+    assert not torch.distributed.is_initialized()
 
 
 def test_mesh_device_and_codec_device():
