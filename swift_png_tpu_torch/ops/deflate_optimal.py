@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _kernels
+from .. import _kernels, trace
 from .._host import native as _native
 from .._host.bits import BitWriter, reverse_bits
 from .._host.lz77 import constants as C
@@ -232,13 +232,18 @@ def _device_depths_update(hist, dep_lit, runcost, ddep):
     built on the host.
     """
     dev = hist.device
-    rd = torch.as_tensor(_RD_OF_L, device=dev).long()
+    with trace.sync():
+        rd = torch.as_tensor(_RD_OF_L, device=dev).long()
     q = _quarter_bits(hist[:, :286])
     dep_lit2 = torch.where(hist[:, :256] > 0, q[:, :256], dep_lit)
-    qrun = q[:, 257:286][:, rd] + 4 * torch.as_tensor(_REX_OF_L, device=dev)
+    qrun = q[:, 257:286][:, rd]
+    with trace.sync():
+        qrun = qrun + 4 * torch.as_tensor(_REX_OF_L, device=dev)
     runcost2 = torch.where(hist[:, 257 + rd] > 0, qrun, runcost)
     distf = F.pad(hist[:, 288:318], (0, 2))
-    dq = _quarter_bits(distf) + 4 * torch.as_tensor(_DEX, device=dev)
+    dq = _quarter_bits(distf)
+    with trace.sync():
+        dq = dq + 4 * torch.as_tensor(_DEX, device=dev)
     ddep2 = torch.where(distf > 0, dq, ddep)
     return dep_lit2, runcost2, ddep2
 
@@ -387,8 +392,9 @@ def optimal_parse(data, clen, cand, dep_lit, runcost, ddep, *, tpi: int):
 
 
 def _dp_constants(dev):
-    return (torch.as_tensor(_RDINFO, device=dev),
-            torch.as_tensor(_DBASE, device=dev))
+    with trace.sync(2):
+        return (torch.as_tensor(_RDINFO, device=dev),
+                torch.as_tensor(_DBASE, device=dev))
 
 
 def optimal_parse_cuda(data, clen, cand, dep_lit, runcost, ddep, *,
@@ -403,7 +409,9 @@ def optimal_parse_cuda(data, clen, cand, dep_lit, runcost, ddep, *,
         _kernels.require(t, name, torch.int32, t.dim())
     lo, hi = torch.cat([dep_lit.view(-1), runcost.view(-1),
                         ddep.view(-1)]).aminmax()
-    if int(lo) < 0 or int(hi) >= DP_COST_CAP:
+    with trace.sync(2):
+        lo, hi = int(lo), int(hi)
+    if lo < 0 or hi >= DP_COST_CAP:
         raise ValueError(f"optimal_parse: cost table entries must lie in "
                          f"[0, {DP_COST_CAP})")
     dev = data.device
@@ -573,8 +581,8 @@ def _emit_pack(terms, valid, freqs, tabs, spans: tuple, TPI: int):
     image's pieces in stream order: ``(atoms (B, natoms), totals (B,))``."""
     _, e_terms, live, slots = emit_input(terms, valid, freqs, TPI)
     B = live.shape[0]
-    lo, hi, nb = emit_terms_batch(e_terms, torch.from_numpy(tabs).to(
-        terms.device), slots)
+    lo, hi, nb = emit_terms_batch(e_terms, trace.upload(tabs, terms.device),
+                                  slots)
     nbv = torch.where(live, nb.view(B, slots), 0)
     offs = torch.cumsum(nbv, dim=1, dtype=torch.int32) - nbv
     return scatter_pack(lo.view(B, slots), hi.view(B, slots), nbv, offs,
@@ -610,18 +618,18 @@ def _batch_inputs(datas: list[bytes], bpp: int, pitch: int, dev,
         buf = np.zeros(Ntot, np.uint8)
         for i, d in enumerate(datas):
             buf[i * stride: i * stride + len(d)] = np.frombuffer(d, np.uint8)
-        dbuf = torch.from_numpy(buf).to(dev)
+        dbuf = trace.upload(buf, dev)
     if dbuf.shape != (Ntot,):
         raise ValueError(f"dbuf must be ({Ntot},), got {tuple(dbuf.shape)}")
     clen = np.zeros(Ntot // NB, np.int32)
     for i, n in enumerate(ns):
         c = np.arange(-(-n // NB))
         clen[i * TPI * 128 + c] = np.minimum(NB, n - c * NB)
-    t = lambda x: torch.from_numpy(x).to(dev)
     return dict(B=B, ns=ns, stride=stride, Ntot=Ntot, TPI=TPI, dmax=dmax,
                 menus=menus, lit_fs=lit_fs, dist_fs=dist_fs, dbuf=dbuf,
-                dists2=t(dv), decades2=t(cv),
-                nvec=t(np.asarray(ns, np.int32)), clen=t(clen))
+                dists2=trace.upload(dv, dev), decades2=trace.upload(cv, dev),
+                nvec=trace.upload(np.asarray(ns, np.int32), dev),
+                clen=trace.upload(clen, dev))
 
 
 def _initial_tables(plan: dict, level: int):
@@ -640,8 +648,7 @@ def _initial_tables(plan: dict, level: int):
         for r, v in zip(rows, _tables_from_depths(depths)[:3]):
             r.append(v)
     dev = plan["dbuf"].device
-    tabs = [torch.from_numpy(np.stack(r).astype(np.int32)).to(dev)
-            for r in rows]
+    tabs = [trace.upload(np.stack(r).astype(np.int32), dev) for r in rows]
     return (*tabs, max(1, iterations * (1 if all_warm else 2)))
 
 
@@ -668,17 +675,22 @@ def optimal_pipeline_batch(datas: list[bytes], level: int = 9,
     tables.  Returns ``(atoms_list, totals (B,), trees)`` with the atoms
     and totals still on the device."""
     dev = dbuf.device if dbuf is not None else resolve_device(device)
-    plan = _batch_inputs(datas, bpp, pitch, dev, dbuf)
-    cand = menu_candidates_batch(plan["dists2"], plan["decades2"],
-                                 plan["dbuf"], plan["nvec"],
-                                 dmax=plan["dmax"], stride=plan["stride"])
-    dep_b, run_b, dde_b, iters = _initial_tables(plan, level)
-    terms, valid, hist = dp_iterated(plan["dbuf"], plan["clen"], cand,
-                                     dep_b, run_b, dde_b, tpi=plan["TPI"],
-                                     iters=iters)
-    freqs = hist.cpu().numpy().astype(np.int64)          # one fetch
-    trees, tabs, spans = _host_trees(freqs)
-    atoms, totals = _emit_pack(terms, valid, freqs, tabs, spans, plan["TPI"])
+    with trace.span("deflate.plan"):
+        plan = _batch_inputs(datas, bpp, pitch, dev, dbuf)
+    with trace.span("deflate.parse"):
+        cand = menu_candidates_batch(
+            plan["dists2"], plan["decades2"], plan["dbuf"], plan["nvec"],
+            dmax=plan["dmax"], stride=plan["stride"])
+        dep_b, run_b, dde_b, iters = _initial_tables(plan, level)
+        terms, valid, hist = dp_iterated(plan["dbuf"], plan["clen"], cand,
+                                         dep_b, run_b, dde_b,
+                                         tpi=plan["TPI"], iters=iters)
+    with trace.span("deflate.trees"):
+        freqs = trace.fetch(hist).numpy().astype(np.int64)  # one fetch
+        trees, tabs, spans = _host_trees(freqs)
+    with trace.span("deflate.emit"):
+        atoms, totals = _emit_pack(terms, valid, freqs, tabs, spans,
+                                   plan["TPI"])
     return list(atoms), totals, trees
 
 
@@ -696,10 +708,10 @@ def _stored_stream(data: bytes) -> bytes:
 
 def _fetch_bodies(atoms_list, totals) -> list[bytes]:
     """One totals fetch and one fetch of every stream's live atoms."""
-    tot_h = totals.cpu().numpy()
+    tot_h = trace.fetch(totals).numpy()
     sliced = [a[: (int(t) + 31) // 32 + 1] for a, t in zip(atoms_list,
                                                          tot_h)]
-    cat = torch.cat(sliced).cpu().numpy()
+    cat = trace.fetch(torch.cat(sliced)).numpy()
     offs = np.cumsum([0] + [s.shape[0] for s in sliced])
     return [(atoms32_to_bytes(cat[offs[j]: offs[j + 1]], int(t)), int(t))
             for j, t in enumerate(tot_h)]
@@ -769,7 +781,8 @@ def deflate_device_optimal_batch(datas: list[bytes], level: int = 9,
         device = dbuf.device
     out: list[bytes | None] = [None] * len(datas)
     small = [i for i, d in enumerate(datas) if len(d) < 3]
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with (trace.span("deflate.optimal"),
+          ThreadPoolExecutor(max_workers=4) as pool):
         est_futs = {}
         if size_policy == "strict" and _native.available():
             est_futs = {i: pool.submit(_strict_estimate, d, min(level, 13))
@@ -790,24 +803,27 @@ def deflate_device_optimal_batch(datas: list[bytes], level: int = 9,
             atoms_list, totals, trees = optimal_pipeline_batch(
                 sub, level=level, pitch=pitch, bpp=bpp, device=device,
                 dbuf=gbuf)
-            bodies = _fetch_bodies(atoms_list, totals)
-            for j, i in enumerate(grp):
-                out[i] = _zlib_stream(datas[i], trees[j], *bodies[j])
+            with trace.span("deflate.fetch"):
+                bodies = _fetch_bodies(atoms_list, totals)
+            with trace.span("deflate.assemble"):
+                for j, i in enumerate(grp):
+                    out[i] = _zlib_stream(datas[i], trees[j], *bodies[j])
         # strict size policy: each device stream against its native-parse
         # probe; losers re-encode natively (threaded) and the smaller
         # stream ships
-        reroute = []
-        for i, fut in est_futs.items():
-            kind, est = fut.result()
-            if kind == "full":
-                if len(est) < len(out[i]):
-                    out[i] = est
-            elif len(out[i]) > est * len(datas[i]) * _STRICT_MARGIN:
-                reroute.append(i)
-        nstreams = pool.map(
-            lambda i: _native.deflate(datas[i], min(level, 13), "zlib"),
-            reroute)
-        for i, s in zip(reroute, nstreams):
-            if len(s) < len(out[i]):
-                out[i] = s
+        with trace.span("deflate.strict_wait"):
+            reroute = []
+            for i, fut in est_futs.items():
+                kind, est = fut.result()
+                if kind == "full":
+                    if len(est) < len(out[i]):
+                        out[i] = est
+                elif len(out[i]) > est * len(datas[i]) * _STRICT_MARGIN:
+                    reroute.append(i)
+            nstreams = pool.map(
+                lambda i: _native.deflate(datas[i], min(level, 13), "zlib"),
+                reroute)
+            for i, s in zip(reroute, nstreams):
+                if len(s) < len(out[i]):
+                    out[i] = s
     return out  # type: ignore[return-value]

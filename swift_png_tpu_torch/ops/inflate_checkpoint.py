@@ -33,6 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import trace
 from .._host import native as _native
 from .._host.lz77 import constants as C
 from .._host.lz77.errors import DecompressionError, StreamHeaderError
@@ -83,7 +84,9 @@ def expand_matches(ptr: torch.Tensor, litv: torch.Tensor) -> torch.Tensor:
     """
     while True:
         nxt = ptr[ptr]
-        if torch.equal(nxt, ptr):
+        with trace.sync():
+            same = torch.equal(nxt, ptr)
+        if same:
             break
         ptr = nxt
     return litv[ptr]
@@ -218,7 +221,8 @@ def expand_sweeps(ptr: torch.Tensor, litv: torch.Tensor,
     j = torch.arange(N, device=ptr.device)
     d = j - ptr
     d16 = _wrap16(d)
-    dists = top_distances(d16, sweep_k).tolist()
+    with trace.sync():
+        dists = top_distances(d16, sweep_k).tolist()
     resolved = d == 0
     out = litv
     for _ in range(3):
@@ -346,7 +350,8 @@ def stamp_match_total(attr, prep: dict) -> int:
     a stream that decodes without flags."""
     owned = (torch.arange(prep["ob"], device=attr.device)
              < prep["meta"][:, 2:3])
-    return int(((attr >= 0) & owned).sum())
+    with trace.sync():
+        return int(((attr >= 0) & owned).sum())
 
 
 def _records_apply(prep: dict, records_cap: int | None) -> bool:
@@ -492,6 +497,127 @@ def tile_budget(n_tokens, pair_steps, lit_ok) -> np.ndarray:
     return np.repeat(np.stack([bound, mode], 1), TUB, 0)[:U].astype(np.int32)
 
 
+# the host arrays :func:`_stage_layout` builds and ``prepare`` uploads, in
+# upload order (the byte buffer and the unit starts, then the tables)
+_STAGED = ("buf", "starts", "meta", "pool_t", "pool_s", "ids", "kbound",
+           "stored_gap")
+
+
+def _stage_layout(bodies: list[bytes],
+                  indexes: list[CheckpointIndex]) -> dict:
+    """The host half of :meth:`CheckpointInflator.prepare`: the batch's
+    scalars and its unit-major numpy arrays, ``buf`` (every body followed
+    by its zero padding) and ``starts`` (each unit's first byte in it)
+    from which the spans are cut on the device, and the rest as
+    ``prepare`` returns them."""
+    out_size = indexes[0].out_size
+    ob = indexes[0].ob
+    for ix in indexes:
+        if ix.out_size != out_size or ix.ob != ob:
+            raise ValueError("a batch needs one out_size and one ob")
+    Ui = (out_size + ob - 1) // ob
+    B = len(bodies)
+    U = B * Ui
+    multiblock = any(ix.multiblock for ix in indexes)
+    has_stored = any(ix.unit_kind.any() for ix in indexes)
+    # v5 multi-gap stored chains: per-unit total skipped bytes bound the
+    # span; the gap table has one (off, len) row pair per gap rank
+    n_gaps = 1
+    gmax = 5
+    for ix in indexes:
+        gmax = max(gmax, int(ix.gap_len.max()))
+        if ix.extra_gaps:
+            n_gaps = max(n_gaps,
+                         1 + max(len(v) for v in ix.extra_gaps.values()))
+            for uu, ex in ix.extra_gaps.items():
+                gmax = max(gmax, int(ix.gap_len[uu])
+                           + sum(ln for _, ln in ex))
+    span_bytes = max(ix.max_span_bytes() for ix in indexes)
+    if has_stored:
+        span_bytes = max(span_bytes, ob + 9 + gmax)
+    S = -(-((span_bytes + 3) // 4) // 8) * 8
+    # every body followed by S·4 zero bytes (a window past the body's
+    # end reads zeros); the units' windows are cut on the device
+    offs = np.cumsum([0] + [len(b) + S * 4 for b in bodies])
+    buf = np.zeros(int(offs[-1]), np.uint8)
+    starts = np.zeros(U, np.int64)
+    meta = np.zeros((U, 4 if multiblock else 3), np.int32)
+    n_tokens = np.zeros(U, np.int64)
+    psteps = np.zeros(U, np.int64)
+    lit_ok = np.zeros(U, bool)
+    sgap = np.full((n_gaps, U), -1, np.int32)
+    sgap[1:] = ob          # rank-2+ gaps: ob = "never" when absent
+    sglen = np.zeros((n_gaps, U), np.int32)
+    ids = np.zeros((U, 2 if multiblock else 1), np.int32)
+    pool_lit, pool_dist = [], []
+    for i, (body, ix) in enumerate(zip(bodies, indexes)):
+        sb = (ix.bit_pos >> 3).astype(np.int64)
+        # the index comes from the file: a unit entry past its body or
+        # a block id past its tables would make the device gathers
+        # read out of bounds
+        if sb.size and (sb.max() > len(body)
+                        or ix.unit_block.min() < 0
+                        or ix.unit_block.max() >= ix.n_blocks):
+            raise DecompressionError.invalid_huffman_table()
+        base = i * Ui
+        rows = slice(base, base + Ui)
+        buf[offs[i]: offs[i] + len(body)] = np.frombuffer(body, np.uint8)
+        starts[rows] = offs[i] + sb
+        meta[rows, 0] = (ix.bit_pos
+                         - (sb << 3).astype(np.uint64)).astype(np.int32)
+        meta[rows, 1] = ix.skip
+        st = ix.unit_kind == KIND_STORED
+        ow = np.minimum(ob, out_size - np.arange(Ui) * ob)
+        meta[rows, 2] = np.where(st, 0, ow)
+        if multiblock:
+            meta[rows, 3] = ix.eob_jump.astype(np.int32)
+        n_tokens[rows] = ix.n_tokens
+        psteps[rows] = (ix.pair_steps if ix.pair_steps is not None
+                        else ix.n_tokens)
+        # all-literal: n_tokens == owned with no skip on either side
+        # of the unit (a match would leave one), no boundary EOB jump
+        # and no stored fill
+        nskip = np.append(ix.skip[1:], 0)
+        lit_ok[rows] = ((meta[rows, 2] == 0)
+                        | ((ix.n_tokens == meta[rows, 2])
+                           & (ix.skip == 0) & (nskip == 0)
+                           & (ix.eob_jump == 0) & ~st))
+        sgap[0, rows] = np.where(
+            st, np.where(ix.gap_off == GAP_NONE, ob,
+                         ix.gap_off.astype(np.int32)), -1)
+        sglen[0, rows] = np.where(st & (ix.gap_off != GAP_NONE),
+                                  ix.gap_len.astype(np.int32), 0)
+        if ix.extra_gaps:
+            for uu, ex in ix.extra_gaps.items():
+                for kg, (goff, glen) in enumerate(ex, start=1):
+                    sgap[kg, base + uu] = goff
+                    sglen[kg, base + uu] = glen
+        p0 = len(pool_lit)
+        for bnum in range(ix.n_blocks):
+            pool_lit.append(ix.lit_lengths[bnum])
+            pool_dist.append(ix.dist_lengths[bnum])
+        ids[rows, 0] = p0 + ix.unit_block
+        if multiblock:
+            ids[rows, 1] = p0 + np.minimum(ix.unit_block + 1,
+                                           ix.n_blocks - 1)
+    pool_lit = np.stack(pool_lit)
+    tabs_all, sym_all = prepare_block_tables(pool_lit,
+                                             np.stack(pool_dist))
+    # trim the packed literal-symbol rows to the populated range: a
+    # structurally valid decode lands at symidx < nlit
+    rows3 = -(-int(np.count_nonzero(pool_lit, 1).max()) // 3)
+    R = max(8, -(-rows3 // 8) * 8)
+    return dict(
+        out_size=out_size, ob=ob, B=B, Ui=Ui, S=S, multiblock=multiblock,
+        has_stored=has_stored,
+        match_total=sum(int(ix.match_bytes) for ix in indexes),
+        buf=buf, starts=starts, meta=meta, pool_t=tabs_all,
+        pool_s=np.ascontiguousarray(sym_all[:, :R]), ids=ids,
+        kbound=tile_budget(n_tokens, psteps, lit_ok),
+        stored_gap=(np.concatenate([sgap, sglen]) if has_stored
+                    else None))
+
+
 class CheckpointInflator:
     """Host staging + device inflate for a batch of indexed streams.
 
@@ -537,120 +663,19 @@ class CheckpointInflator:
         ``match_total`` among them (the indexes' match bytes: 0 for an
         index parsed from a chunk, which does not carry the count).
         """
-        out_size = indexes[0].out_size
-        ob = indexes[0].ob
-        for ix in indexes:
-            if ix.out_size != out_size or ix.ob != ob:
-                raise ValueError("a batch needs one out_size and one ob")
-        Ui = (out_size + ob - 1) // ob
-        B = len(bodies)
-        U = B * Ui
-        multiblock = any(ix.multiblock for ix in indexes)
-        has_stored = any(ix.unit_kind.any() for ix in indexes)
-        # v5 multi-gap stored chains: per-unit total skipped bytes bound the
-        # span; the gap table has one (off, len) row pair per gap rank
-        n_gaps = 1
-        gmax = 5
-        for ix in indexes:
-            gmax = max(gmax, int(ix.gap_len.max()))
-            if ix.extra_gaps:
-                n_gaps = max(n_gaps,
-                             1 + max(len(v) for v in ix.extra_gaps.values()))
-                for uu, ex in ix.extra_gaps.items():
-                    gmax = max(gmax, int(ix.gap_len[uu])
-                               + sum(ln for _, ln in ex))
-        span_bytes = max(ix.max_span_bytes() for ix in indexes)
-        if has_stored:
-            span_bytes = max(span_bytes, ob + 9 + gmax)
-        S = -(-((span_bytes + 3) // 4) // 8) * 8
-        # every body followed by S·4 zero bytes (a window past the body's
-        # end reads zeros); the units' windows are cut on the device
-        offs = np.cumsum([0] + [len(b) + S * 4 for b in bodies])
-        buf = np.zeros(int(offs[-1]), np.uint8)
-        starts = np.zeros(U, np.int64)
-        meta = np.zeros((U, 4 if multiblock else 3), np.int32)
-        n_tokens = np.zeros(U, np.int64)
-        psteps = np.zeros(U, np.int64)
-        lit_ok = np.zeros(U, bool)
-        sgap = np.full((n_gaps, U), -1, np.int32)
-        sgap[1:] = ob          # rank-2+ gaps: ob = "never" when absent
-        sglen = np.zeros((n_gaps, U), np.int32)
-        ids = np.zeros((U, 2 if multiblock else 1), np.int32)
-        pool_lit, pool_dist = [], []
-        for i, (body, ix) in enumerate(zip(bodies, indexes)):
-            sb = (ix.bit_pos >> 3).astype(np.int64)
-            # the index comes from the file: a unit entry past its body or
-            # a block id past its tables would make the device gathers
-            # read out of bounds
-            if sb.size and (sb.max() > len(body)
-                            or ix.unit_block.min() < 0
-                            or ix.unit_block.max() >= ix.n_blocks):
-                raise DecompressionError.invalid_huffman_table()
-            base = i * Ui
-            rows = slice(base, base + Ui)
-            buf[offs[i]: offs[i] + len(body)] = np.frombuffer(body, np.uint8)
-            starts[rows] = offs[i] + sb
-            meta[rows, 0] = (ix.bit_pos
-                             - (sb << 3).astype(np.uint64)).astype(np.int32)
-            meta[rows, 1] = ix.skip
-            st = ix.unit_kind == KIND_STORED
-            ow = np.minimum(ob, out_size - np.arange(Ui) * ob)
-            meta[rows, 2] = np.where(st, 0, ow)
-            if multiblock:
-                meta[rows, 3] = ix.eob_jump.astype(np.int32)
-            n_tokens[rows] = ix.n_tokens
-            psteps[rows] = (ix.pair_steps if ix.pair_steps is not None
-                            else ix.n_tokens)
-            # all-literal: n_tokens == owned with no skip on either side
-            # of the unit (a match would leave one), no boundary EOB jump
-            # and no stored fill
-            nskip = np.append(ix.skip[1:], 0)
-            lit_ok[rows] = ((meta[rows, 2] == 0)
-                            | ((ix.n_tokens == meta[rows, 2])
-                               & (ix.skip == 0) & (nskip == 0)
-                               & (ix.eob_jump == 0) & ~st))
-            sgap[0, rows] = np.where(
-                st, np.where(ix.gap_off == GAP_NONE, ob,
-                             ix.gap_off.astype(np.int32)), -1)
-            sglen[0, rows] = np.where(st & (ix.gap_off != GAP_NONE),
-                                      ix.gap_len.astype(np.int32), 0)
-            if ix.extra_gaps:
-                for uu, ex in ix.extra_gaps.items():
-                    for kg, (goff, glen) in enumerate(ex, start=1):
-                        sgap[kg, base + uu] = goff
-                        sglen[kg, base + uu] = glen
-            p0 = len(pool_lit)
-            for bnum in range(ix.n_blocks):
-                pool_lit.append(ix.lit_lengths[bnum])
-                pool_dist.append(ix.dist_lengths[bnum])
-            ids[rows, 0] = p0 + ix.unit_block
-            if multiblock:
-                ids[rows, 1] = p0 + np.minimum(ix.unit_block + 1,
-                                               ix.n_blocks - 1)
-        pool_lit = np.stack(pool_lit)
-        tabs_all, sym_all = prepare_block_tables(pool_lit,
-                                                 np.stack(pool_dist))
-        # trim the packed literal-symbol rows to the populated range: a
-        # structurally valid decode lands at symidx < nlit
-        rows3 = -(-int(np.count_nonzero(pool_lit, 1).max()) // 3)
-        R = max(8, -(-rows3 // 8) * 8)
-        dev = self.device
-        spans = torch.from_numpy(buf).to(dev).unfold(0, S * 4, 1)[
-            torch.from_numpy(starts).to(dev)]
-        return dict(
-            out_size=out_size, ob=ob, B=B, Ui=Ui, S=S,
-            multiblock=multiblock, has_stored=has_stored,
-            match_total=sum(int(ix.match_bytes) for ix in indexes),
-            spans=spans.view(torch.int32),
-            meta=torch.from_numpy(meta).to(dev),
-            pool_t=torch.from_numpy(tabs_all).to(dev),
-            pool_s=torch.from_numpy(np.ascontiguousarray(sym_all[:, :R])
-                                    ).to(dev),
-            ids=torch.from_numpy(ids).to(dev),
-            kbound=torch.from_numpy(
-                tile_budget(n_tokens, psteps, lit_ok)).to(dev),
-            stored_gap=(torch.from_numpy(np.concatenate([sgap, sglen]))
-                        .to(dev) if has_stored else None))
+        with trace.span("checkpoint.prepare"):
+            with trace.span("checkpoint.layout"):
+                host = _stage_layout(bodies, indexes)
+            dev = self.device
+            with trace.span("checkpoint.upload"):
+                staged = [k for k in _STAGED if host[k] is not None]
+                S = host["S"]
+                spans = trace.upload(host.pop("buf"), dev).unfold(
+                    0, S * 4, 1)[trace.upload(host.pop("starts"), dev)]
+                host["spans"] = spans.view(torch.int32)
+                for k in staged[2:]:
+                    host[k] = trace.upload(host[k], dev)
+            return host
 
     def run(self, bodies: list[bytes], indexes: list[CheckpointIndex],
             collapse: bool | None = None):
@@ -679,60 +704,71 @@ class CheckpointInflator:
         routes as a host-indexed one, on the device.  ``last_plan`` records
         the tier and mode taken.
         """
-        out_size, ob = indexes[0].out_size, indexes[0].ob
-        if any(ix.out_size != out_size or ix.ob != ob for ix in indexes):
-            raise ValueError("a batch needs one out_size and one ob")
-        B = len(bodies)
-        Ui = (out_size + ob - 1) // ob
-        # host-built indexes carry their match bytes, so the tier is chosen
-        # before any staging; otherwise K1's stamp counts them first
-        counted = all(ix.match_segs >= 0 for ix in indexes)
-        prep = k1 = None
-        if counted:
-            match_total = sum(int(ix.match_bytes) for ix in indexes)
-        else:
-            prep = self.prepare(bodies, indexes)
-            k1 = stamp(prep)
-            match_total = prep["match_total"] = stamp_match_total(k1[0], prep)
-        if collapse is None:
-            collapse = self.auto_collapse(match_total, B, out_size, Ui, ob)
-        aligned = (Ui * ob) % 128 == 0
-        force_sweeps = False
-        if collapse and aligned and match_total * 2 > B * out_size:
-            dec = self._probe_tiers(bodies, out_size, host_ok=counted)
-            hostset = [i for i in range(B) if dec[i] == "host"]
-            if 0 < len(hostset) < B:
-                return self._run_mixed(bodies, indexes, hostset, collapse)
-            if hostset:
-                return self._run_host(bodies, out_size)
-            force_sweeps = "sweeps" in dec.values()
-        if prep is None:
-            prep = self.prepare(bodies, indexes)
-            k1 = stamp(prep)
-        records_smem_cap = inflate_seqcopy.RECORDS_SMEM_CAP
-        records_cap = sweep_k = None
-        if collapse and aligned:
-            records_cap = min(records_smem_cap,
-                              _r8k(max(4096, match_total // 16)))
-            if force_sweeps:
-                records_cap, sweep_k = None, SWEEP_K
-        while True:
-            out, flag, adler, ovf = inflate_tail(
-                *k1, prep, collapse=collapse, records_cap=records_cap,
-                sweep_k=sweep_k)
-            if not ovf:
-                break
-            # only the records kernel overflows: grow within the cap, then
-            # switch to the sweeps
-            if records_cap < records_smem_cap:
-                records_cap = min(records_cap * 4, records_smem_cap)
+        with trace.span("checkpoint.run"):
+            out_size, ob = indexes[0].out_size, indexes[0].ob
+            if any(ix.out_size != out_size or ix.ob != ob for ix in indexes):
+                raise ValueError("a batch needs one out_size and one ob")
+            B = len(bodies)
+            Ui = (out_size + ob - 1) // ob
+            # host-built indexes carry their match bytes, so the tier is
+            # chosen before any staging; otherwise K1's stamp counts them
+            # first
+            counted = all(ix.match_segs >= 0 for ix in indexes)
+            prep = k1 = None
+            if counted:
+                match_total = sum(int(ix.match_bytes) for ix in indexes)
             else:
-                records_cap, sweep_k = None, SWEEP_K
-        if int(flag.max()) != 0:
-            raise DecompressionError.invalid_huffman_table()
-        self.last_plan = dict(tier="device", collapse=collapse,
-                              records_cap=records_cap, sweep_k=sweep_k)
-        return out, adler.cpu().numpy().astype(np.uint32)
+                prep = self.prepare(bodies, indexes)
+                with trace.span("checkpoint.stamp"):
+                    k1 = stamp(prep)
+                    match_total = prep["match_total"] = stamp_match_total(
+                        k1[0], prep)
+            if collapse is None:
+                collapse = self.auto_collapse(match_total, B, out_size, Ui,
+                                              ob)
+            aligned = (Ui * ob) % 128 == 0
+            force_sweeps = False
+            if collapse and aligned and match_total * 2 > B * out_size:
+                with trace.span("checkpoint.probe"):
+                    dec = self._probe_tiers(bodies, out_size, host_ok=counted)
+                hostset = [i for i in range(B) if dec[i] == "host"]
+                if 0 < len(hostset) < B:
+                    return self._run_mixed(bodies, indexes, hostset, collapse)
+                if hostset:
+                    return self._run_host(bodies, out_size)
+                force_sweeps = "sweeps" in dec.values()
+            if prep is None:
+                prep = self.prepare(bodies, indexes)
+                with trace.span("checkpoint.stamp"):
+                    k1 = stamp(prep)
+            records_smem_cap = inflate_seqcopy.RECORDS_SMEM_CAP
+            records_cap = sweep_k = None
+            if collapse and aligned:
+                records_cap = min(records_smem_cap,
+                                  _r8k(max(4096, match_total // 16)))
+                if force_sweeps:
+                    records_cap, sweep_k = None, SWEEP_K
+            with trace.span("checkpoint.tail"):
+                while True:
+                    out, flag, adler, ovf = inflate_tail(
+                        *k1, prep, collapse=collapse, records_cap=records_cap,
+                        sweep_k=sweep_k)
+                    if not ovf:
+                        break
+                    # only the records kernel overflows: grow within the
+                    # cap, then switch to the sweeps
+                    if records_cap < records_smem_cap:
+                        records_cap = min(records_cap * 4, records_smem_cap)
+                    else:
+                        records_cap, sweep_k = None, SWEEP_K
+                with trace.sync():
+                    bad = int(flag.max()) != 0
+                if bad:
+                    raise DecompressionError.invalid_huffman_table()
+                adler = trace.fetch(adler).numpy().astype(np.uint32)
+            self.last_plan = dict(tier="device", collapse=collapse,
+                                  records_cap=records_cap, sweep_k=sweep_k)
+            return out, adler
 
     @staticmethod
     def _probe_tiers(bodies: list[bytes], out_size: int,
@@ -771,7 +807,7 @@ class CheckpointInflator:
                                np.uint32)
         arr = np.stack([np.frombuffer(o, np.uint8) for o in outs])
         self.last_plan = dict(tier="host")
-        return torch.from_numpy(arr).to(self.device), adler
+        return trace.upload(arr, self.device), adler
 
     def _run_mixed(self, bodies: list[bytes], indexes: list[CheckpointIndex],
                    hostset: list[int], collapse: bool):
@@ -789,9 +825,9 @@ class CheckpointInflator:
             hadler = list(pool.map(_native.adler32, houts))
         out = torch.empty((B, out_size), dtype=torch.uint8, device=self.device)
         out[devset] = dout
-        out[hostset] = torch.from_numpy(
-            np.stack([np.frombuffer(o, np.uint8) for o in houts])
-        ).to(self.device)
+        out[hostset] = trace.upload(
+            np.stack([np.frombuffer(o, np.uint8) for o in houts]),
+            self.device)
         adler = np.empty(B, np.uint32)
         adler[devset] = dadler
         adler[hostset] = hadler

@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._host.lz77 import constants as C
 from .._host.lz77.errors import (DecompressionError, GzipStreamHeaderError,
                                  StreamHeaderError)
@@ -96,7 +97,7 @@ def _consts(dev: torch.device) -> dict:
             "clo": np.array(C.CODELENGTH_ORDER),
             "fixed_lit": lit, "fixed_dist": dist,
         }
-        c = {k: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
+        c = {k: trace.upload(np.asarray(v, np.int64), dev)
              for k, v in t.items()}
         _CONSTS[dev] = c
     return c
@@ -391,119 +392,124 @@ def _inflate(Dh: np.ndarray, Dd: torch.Tensor, out_size: int,
     done = np.zeros(B, bool)
     ar_t = torch.arange(t_max, device=dev)
 
-    while True:
-        act = np.nonzero(~done & (status == 0))[0]
-        if act.size == 0:
-            break
-        bp = bitpos[act]
-        hdr = (_host_words(Dh, act, bp >> 3) >> (bp & 7)) & 7
-        final = (hdr & 1) == 1
-        btype = hdr >> 1
-        flag = np.where(btype == 3, F_BAD_BLOCK, 0)
-        T = np.zeros(act.size, np.int64)
-        end_bit = np.zeros(act.size, np.int64)
-        tok_w = np.minimum(tok[act], tok_cap)
+    with trace.span("inflate_fused.blocks"):
+        while True:
+            act = np.nonzero(~done & (status == 0))[0]
+            if act.size == 0:
+                break
+            bp = bitpos[act]
+            hdr = (_host_words(Dh, act, bp >> 3) >> (bp & 7)) & 7
+            final = (hdr & 1) == 1
+            btype = hdr >> 1
+            flag = np.where(btype == 3, F_BAD_BLOCK, 0)
+            T = np.zeros(act.size, np.int64)
+            end_bit = np.zeros(act.size, np.int64)
+            tok_w = np.minimum(tok[act], tok_cap)
 
-        # Huffman blocks (fixed and dynamic) on the device
-        hsel = np.nonzero((btype == 1) | (btype == 2))[0]
-        if hsel.size:
-            rows = torch.from_numpy(act[hsel]).to(dev)
-            H = hsel.size
-            pos_tables = torch.from_numpy(bp[hsel] + 3).to(dev)
-            litL = c["fixed_lit"].expand(H, -1)
-            distL = c["fixed_dist"].expand(H, -1)
-            tflag = torch.zeros(H, dtype=torch.int64, device=dev)
-            dsel = np.nonzero(btype[hsel] == 2)[0]
-            if dsel.size:
-                di = torch.from_numpy(dsel).to(dev)
-                end_pos, dlit, ddist, bad = _parse_dynamic(
-                    W, rows[di], pos_tables[di], c)
-                pos_tables = pos_tables.index_copy(0, di, end_pos)
-                litL = litL.index_copy(0, di, dlit)
-                distL = distL.index_copy(0, di, ddist)
-                tflag = tflag.index_copy(
-                    0, di, torch.where(bad, F_BAD_CODE, 0))
-            start_byte = pos_tables >> 3
-            Wwin = _window(W, rows, start_byte, win_words)
-            Th, end_rel, hflag, ck, cl, ca = _decode_window(
-                Wwin, pos_tables & 7, _canonical_params(litL),
-                _canonical_params(distL), t_max, c)
-            at = torch.from_numpy(tok_w[hsel]).to(dev)[:, None] + ar_t
-            tk[rows[:, None], at] = ck
-            tl[rows[:, None], at] = cl
-            ta[rows[:, None], at] = ca
-            got = torch.stack([Th, start_byte * 8 + end_rel,
-                               hflag | tflag]).cpu().numpy()
-            T[hsel] = got[0]
-            end_bit[hsel] = got[1]
-            flag[hsel] |= got[2]
+            # Huffman blocks (fixed and dynamic) on the device
+            hsel = np.nonzero((btype == 1) | (btype == 2))[0]
+            if hsel.size:
+                rows = trace.upload(act[hsel], dev)
+                H = hsel.size
+                pos_tables = trace.upload(bp[hsel] + 3, dev)
+                litL = c["fixed_lit"].expand(H, -1)
+                distL = c["fixed_dist"].expand(H, -1)
+                tflag = torch.zeros(H, dtype=torch.int64, device=dev)
+                dsel = np.nonzero(btype[hsel] == 2)[0]
+                if dsel.size:
+                    di = trace.upload(dsel, dev)
+                    end_pos, dlit, ddist, bad = _parse_dynamic(
+                        W, rows[di], pos_tables[di], c)
+                    pos_tables = pos_tables.index_copy(0, di, end_pos)
+                    litL = litL.index_copy(0, di, dlit)
+                    distL = distL.index_copy(0, di, ddist)
+                    tflag = tflag.index_copy(
+                        0, di, torch.where(bad, F_BAD_CODE, 0))
+                start_byte = pos_tables >> 3
+                Wwin = _window(W, rows, start_byte, win_words)
+                Th, end_rel, hflag, ck, cl, ca = _decode_window(
+                    Wwin, pos_tables & 7, _canonical_params(litL),
+                    _canonical_params(distL), t_max, c)
+                at = trace.upload(tok_w[hsel], dev)[:, None] + ar_t
+                tk[rows[:, None], at] = ck
+                tl[rows[:, None], at] = cl
+                ta[rows[:, None], at] = ca
+                got = trace.fetch(torch.stack([Th, start_byte * 8 + end_rel,
+                                               hflag | tflag])).numpy()
+                T[hsel] = got[0]
+                end_bit[hsel] = got[1]
+                flag[hsel] |= got[2]
 
-        # stored blocks: scalar work on the host bytes
-        aligned = (bp + 3 + 7) & ~7
-        base_byte = aligned >> 3
-        wlen = _host_words(Dh, act, base_byte)
-        slen = wlen & 0xFFFF
-        snlen = (wlen >> 16) & 0xFFFF
-        is_stored = btype == 0
-        T[is_stored] = 1
-        end_bit[is_stored] = 8 * (base_byte + 4 + slen)[is_stored]
-        flag |= np.where(is_stored & ((slen ^ 0xFFFF) != snlen),
-                         F_BAD_PARITY, 0)
-        ssel = np.nonzero(is_stored)[0]
-        if ssel.size:
-            # one token each; entries at or past a stream's token count are
-            # never read, so the rest of its row is not cleared
-            r = torch.from_numpy(act[ssel]).to(dev)
-            at = torch.from_numpy(tok_w[ssel]).to(dev)
-            tk[r, at] = K_STORED
-            tl[r, at] = torch.from_numpy(slen[ssel]).to(dev)
-            ta[r, at] = torch.from_numpy(base_byte[ssel] + 4).to(dev)
+            # stored blocks: scalar work on the host bytes
+            aligned = (bp + 3 + 7) & ~7
+            base_byte = aligned >> 3
+            wlen = _host_words(Dh, act, base_byte)
+            slen = wlen & 0xFFFF
+            snlen = (wlen >> 16) & 0xFFFF
+            is_stored = btype == 0
+            T[is_stored] = 1
+            end_bit[is_stored] = 8 * (base_byte + 4 + slen)[is_stored]
+            flag |= np.where(is_stored & ((slen ^ 0xFFFF) != snlen),
+                             F_BAD_PARITY, 0)
+            ssel = np.nonzero(is_stored)[0]
+            if ssel.size:
+                # one token each; entries at or past a stream's token count
+                # are never read, so the rest of its row is not cleared
+                r = trace.upload(act[ssel], dev)
+                at = trace.upload(tok_w[ssel], dev)
+                tk[r, at] = K_STORED
+                tl[r, at] = trace.upload(slen[ssel], dev)
+                ta[r, at] = trace.upload(base_byte[ssel] + 4, dev)
 
-        flag |= np.where(tok[act] + T > tok_cap, F_OVERFLOW, 0)
-        blk[act] += 1
-        flag |= np.where((blk[act] >= max_blocks) & ~final,
-                         F_TOO_MANY_BLOCKS, 0)
-        bitpos[act] = end_bit
-        tok[act] += T
-        done[act] = final
-        status[act] |= flag
+            flag |= np.where(tok[act] + T > tok_cap, F_OVERFLOW, 0)
+            blk[act] += 1
+            flag |= np.where((blk[act] >= max_blocks) & ~final,
+                             F_TOO_MANY_BLOCKS, 0)
+            bitpos[act] = end_bit
+            tok[act] += T
+            done[act] = final
+            status[act] |= flag
 
     # ---- global assembly ------------------------------------------------
-    O = out_size
-    ranks = torch.arange(TOKP, device=dev)
-    valid = ranks < torch.from_numpy(tok).to(dev)[:, None]
-    outlen = torch.where(valid, tl, 0)
-    starts = _i32(torch.cumsum(outlen, 1) - outlen)
-    total = _i32(outlen.sum(1))
-    tid0 = torch.full((B, O + 1), -1, dtype=torch.int64, device=dev)
-    tid0.scatter_reduce_(1, starts.clamp(0, O),
-                         torch.where(valid & (outlen > 0), ranks, -1),
-                         "amax")
-    tid = torch.cummax(tid0[:, :O], 1).values if O else tid0[:, :0]
-    safe = tid.clamp(0, TOKP - 1)
-    kj = torch.gather(tk, 1, safe)
-    aj = torch.gather(ta, 1, safe)
-    sj = torch.gather(starts, 1, safe)
-    j = torch.arange(O, device=dev)
-    ptr = torch.where(kj == K_MATCH, j - aj, j)
-    bad_dist = ((ptr < 0) | (tid < 0)).any(1)
-    ptr = ptr.clamp(0, max(O - 1, 0))
-    litv = torch.where(kj == K_LIT, aj, 0)
-    litv = torch.where(
-        kj == K_STORED,
-        torch.gather(Dd, 1, (aj + (j - sj)).clamp(0, n - 1)).long(),
-        litv).to(torch.uint8)
-    while True:
-        nxt = torch.gather(ptr, 1, ptr)
-        if torch.equal(nxt, ptr):
-            break
-        ptr = nxt
-    out = torch.gather(litv, 1, ptr)
-    outp = torch.nn.functional.pad(out, (0, (-O) % 32768))
-    adler = _adler_device(outp, O)
-    fin = torch.stack([total, bad_dist.long(), adler]).cpu().numpy()
-    status |= np.where(fin[0] != O, F_OUTPUT_MISMATCH, 0)
-    status |= np.where(fin[1] != 0, F_BAD_DISTANCE, 0)
+    with trace.span("inflate_fused.assemble"):
+        O = out_size
+        ranks = torch.arange(TOKP, device=dev)
+        valid = ranks < trace.upload(tok, dev)[:, None]
+        outlen = torch.where(valid, tl, 0)
+        starts = _i32(torch.cumsum(outlen, 1) - outlen)
+        total = _i32(outlen.sum(1))
+        tid0 = torch.full((B, O + 1), -1, dtype=torch.int64, device=dev)
+        tid0.scatter_reduce_(1, starts.clamp(0, O),
+                             torch.where(valid & (outlen > 0), ranks, -1),
+                             "amax")
+        tid = torch.cummax(tid0[:, :O], 1).values if O else tid0[:, :0]
+        safe = tid.clamp(0, TOKP - 1)
+        kj = torch.gather(tk, 1, safe)
+        aj = torch.gather(ta, 1, safe)
+        sj = torch.gather(starts, 1, safe)
+        j = torch.arange(O, device=dev)
+        ptr = torch.where(kj == K_MATCH, j - aj, j)
+        bad_dist = ((ptr < 0) | (tid < 0)).any(1)
+        ptr = ptr.clamp(0, max(O - 1, 0))
+        litv = torch.where(kj == K_LIT, aj, 0)
+        litv = torch.where(
+            kj == K_STORED,
+            torch.gather(Dd, 1, (aj + (j - sj)).clamp(0, n - 1)).long(),
+            litv).to(torch.uint8)
+        while True:
+            nxt = torch.gather(ptr, 1, ptr)
+            with trace.sync():
+                same = torch.equal(nxt, ptr)
+            if same:
+                break
+            ptr = nxt
+        out = torch.gather(litv, 1, ptr)
+        outp = torch.nn.functional.pad(out, (0, (-O) % 32768))
+        adler = _adler_device(outp, O)
+        fin = trace.fetch(
+            torch.stack([total, bad_dist.long(), adler])).numpy()
+        status |= np.where(fin[0] != O, F_OUTPUT_MISMATCH, 0)
+        status |= np.where(fin[1] != 0, F_BAD_DISTANCE, 0)
     return outp, status, bitpos, fin[2], blk
 
 
@@ -525,7 +531,7 @@ def inflate_fused(D: torch.Tensor, *, out_size: int, win_words: int,
       success.  ``out`` is on ``D``'s device, the rest are ints.
     """
     out, status, end_bit, adler, _ = _inflate(
-        D.cpu().numpy()[None], D[None], out_size, win_words, t_max,
+        trace.fetch(D).numpy()[None], D[None], out_size, win_words, t_max,
         max_blocks, tok_cap)
     return out[0], int(status[0]), int(end_bit[0]), int(adler[0])
 
@@ -536,7 +542,7 @@ def inflate_fused_batch(Ds: torch.Tensor, *, out_size: int, win_words: int,
     lockstep, each block step over the streams still decoding.  Returns
     ``(out (B, padded), status, end_bit, adler)``, the last three numpy
     ``(B,)``; row b equals :func:`inflate_fused` of ``Ds[b]``."""
-    return _inflate(Ds.cpu().numpy(), Ds, out_size, win_words, t_max,
+    return _inflate(trace.fetch(Ds).numpy(), Ds, out_size, win_words, t_max,
                     max_blocks, tok_cap)[:4]
 
 
@@ -571,7 +577,7 @@ class InflateFused:
     def _run(self, Dh: np.ndarray, out_size: int, win: int, t_max: int,
              retries: int):
         out, status, end_bit, adler, blk = _inflate(
-            Dh, torch.from_numpy(Dh).to(self.device), out_size, win, t_max,
+            Dh, trace.upload(Dh, self.device), out_size, win, t_max,
             self.max_blocks, out_size + 1)
         self.last_run = {"blocks": int(blk.max()), "retries": retries}
         return out, status, end_bit, adler
@@ -623,60 +629,62 @@ class InflateFused:
                 keep_on_device: bool = False):
         """Complete zlib/ios/gzip stream → decompressed bytes: a numpy
         array, or a tensor on the device with ``keep_on_device``."""
-        if format == "zlib":
-            if len(data) < 6:
-                # 2-byte header + 4-byte Adler trailer minimum
-                raise DecompressionError.invalid_stream_checksum(0, 0)
-            cmf, flg = data[0], data[1]
-            if cmf & 0x0F != 0x08:
-                raise StreamHeaderError.invalid_compression_method(cmf & 0x0F)
-            if (cmf * 256 + flg) % 31 != 0:
-                raise StreamHeaderError.invalid_check_bits()
-            if flg & 0x20:
-                raise StreamHeaderError.unexpected_dictionary()
-            out, adler = self.run(data[2:], out_size)
-            declared = int.from_bytes(data[-4:], "big")
-            if adler != declared:
-                raise DecompressionError.invalid_stream_checksum(
-                    declared, adler)
-        elif format == "ios":
-            out, _ = self.run(data, out_size)
-        elif format == "gzip":
-            from .._host.lz77.checksums import crc32
-
-            if len(data) < 18 or data[0] != 0x1F or data[1] != 0x8B:
-                raise GzipStreamHeaderError.invalid_sigil()
-            if data[2] != 0x08:
-                raise GzipStreamHeaderError.invalid_compression_method(
-                    data[2])
-            flags = data[3]
-            if flags & 0b1110_0000:
-                raise GzipStreamHeaderError.invalid_flag_bits(flags)
-            if flags & 0x02:
-                raise GzipStreamHeaderError.header_checksum_unsupported()
-            off = 10
-            if flags & 0x04:
-                off += 2 + int.from_bytes(data[off:off + 2], "little")
-            for bit in (0x08, 0x10):
-                if flags & bit:
-                    off = data.index(b"\x00", off) + 1
-            out, _ = self.run(data[off:], out_size)
-            isize = int.from_bytes(data[-4:], "little")
-            if isize != out_size & 0xFFFFFFFF:
-                raise DecompressionError.invalid_stream_checksum(
-                    isize, out_size)
-            if not keep_on_device:
-                declared = int.from_bytes(data[-8:-4], "little")
-                host = out[:out_size].cpu().numpy()
-                computed = crc32(host)
-                if computed != declared:
+        with trace.span("inflate_fused.inflate"):
+            if format == "zlib":
+                if len(data) < 6:
+                    # 2-byte header + 4-byte Adler trailer minimum
+                    raise DecompressionError.invalid_stream_checksum(0, 0)
+                cmf, flg = data[0], data[1]
+                if cmf & 0x0F != 0x08:
+                    raise StreamHeaderError.invalid_compression_method(
+                        cmf & 0x0F)
+                if (cmf * 256 + flg) % 31 != 0:
+                    raise StreamHeaderError.invalid_check_bits()
+                if flg & 0x20:
+                    raise StreamHeaderError.unexpected_dictionary()
+                out, adler = self.run(data[2:], out_size)
+                declared = int.from_bytes(data[-4:], "big")
+                if adler != declared:
                     raise DecompressionError.invalid_stream_checksum(
-                        declared, computed)
-                return host
-        else:
-            raise ValueError(f"unknown format {format!r}")
-        out = out[:out_size]
-        return out if keep_on_device else out.cpu().numpy()
+                        declared, adler)
+            elif format == "ios":
+                out, _ = self.run(data, out_size)
+            elif format == "gzip":
+                from .._host.lz77.checksums import crc32
+
+                if len(data) < 18 or data[0] != 0x1F or data[1] != 0x8B:
+                    raise GzipStreamHeaderError.invalid_sigil()
+                if data[2] != 0x08:
+                    raise GzipStreamHeaderError.invalid_compression_method(
+                        data[2])
+                flags = data[3]
+                if flags & 0b1110_0000:
+                    raise GzipStreamHeaderError.invalid_flag_bits(flags)
+                if flags & 0x02:
+                    raise GzipStreamHeaderError.header_checksum_unsupported()
+                off = 10
+                if flags & 0x04:
+                    off += 2 + int.from_bytes(data[off:off + 2], "little")
+                for bit in (0x08, 0x10):
+                    if flags & bit:
+                        off = data.index(b"\x00", off) + 1
+                out, _ = self.run(data[off:], out_size)
+                isize = int.from_bytes(data[-4:], "little")
+                if isize != out_size & 0xFFFFFFFF:
+                    raise DecompressionError.invalid_stream_checksum(
+                        isize, out_size)
+                if not keep_on_device:
+                    declared = int.from_bytes(data[-8:-4], "little")
+                    host = trace.fetch(out[:out_size]).numpy()
+                    computed = crc32(host)
+                    if computed != declared:
+                        raise DecompressionError.invalid_stream_checksum(
+                            declared, computed)
+                    return host
+            else:
+                raise ValueError(f"unknown format {format!r}")
+            out = out[:out_size]
+            return out if keep_on_device else trace.fetch(out).numpy()
 
 
 class InflateFusedBatch(InflateFused):
@@ -722,4 +730,4 @@ class InflateFusedBatch(InflateFused):
         else:
             raise ValueError(f"unknown format {format!r}")
         out = out[:, :out_size]
-        return out if keep_on_device else out.cpu().numpy()
+        return out if keep_on_device else trace.fetch(out).numpy()

@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, trace
 
 __all__ = ["decode_stamp", "decode_stamp_cuda", "decode_stamp_reference",
            "decode_stamp_units", "prepare_block_tables", "unit_tables",
@@ -132,9 +132,12 @@ def _layout(spans, meta, pool_t, pool_s, ids, kbound):
     if kbound.shape != (U, 2):
         raise ValueError(f"kbound must be (U, 2), got {tuple(kbound.shape)}")
     # the kernel indexes the pool by these ids: none may leave it
-    if U and not 0 <= int(ids.min()) <= int(ids.max()) < pool_t.shape[0]:
-        raise ValueError(f"ids must index the pool's {pool_t.shape[0]} "
-                         f"blocks")
+    if U:
+        with trace.sync(2):
+            lo, hi = int(ids.min()), int(ids.max())
+        if not 0 <= lo <= hi < pool_t.shape[0]:
+            raise ValueError(f"ids must index the pool's {pool_t.shape[0]} "
+                             f"blocks")
     return U, S, multiblock, pool_s.shape[1]
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from .._host import native as _native
 from .._host.lz77.deflate import Deflator
 from .._host.lz77.huffman import lengths_from_frequencies
@@ -73,11 +74,12 @@ def decode_stage(filtered: torch.Tensor, *, delay: int, depth: int,
     the input's device.  ``palette``/``key`` are per image: ``(B, 256, 4)``
     and ``(B, channels)`` (a key of −1 never matches); ``is_bgr`` reads
     the iOS byte order."""
-    rows = defilter_batch(filtered, delay)
-    return convolve.unpack_rgba(rows, depth=depth, channels=channels,
-                                width=width, is_bgr=is_bgr,
-                                is_indexed=is_indexed, has_key=has_key,
-                                palette=palette, key=key, bits=bits)
+    with trace.span("decode.stage"):
+        rows = defilter_batch(filtered, delay)
+        return convolve.unpack_rgba(rows, depth=depth, channels=channels,
+                                    width=width, is_bgr=is_bgr,
+                                    is_indexed=is_indexed, has_key=has_key,
+                                    palette=palette, key=key, bits=bits)
 
 
 def _palette_key_arrays(pixel, palettes, transparencies):
@@ -111,29 +113,30 @@ def lex_png(data: bytes):
     """Lex one PNG for general decode: ``(header, standard, palette,
     transparency, idat)`` — the iOS standard when a CgBI chunk comes
     first, and the concatenated IDAT payloads."""
-    stream = chunks.ByteSource(data)
-    stream.signature()
-    type_, payload = stream.chunk()
-    standard = COMMON
-    if type_ == chunks.CgBI:
-        standard = IOS
+    with trace.span("decode.lex"):
+        stream = chunks.ByteSource(data)
+        stream.signature()
         type_, payload = stream.chunk()
-    header = parsing.Header.parse(payload, standard)
-    palette = None
-    transparency = None
-    idat = bytearray()
-    while True:
-        type_, payload = stream.chunk()
-        if type_ == chunks.PLTE:
-            palette = parsing.Palette.parse(payload, header.pixel)
-        elif type_ == chunks.tRNS:
-            transparency = parsing.Transparency.parse(
-                payload, header.pixel, palette)
-        elif type_ == chunks.IDAT:
-            idat += payload
-        elif type_ == chunks.IEND:
-            break
-    return header, standard, palette, transparency, bytes(idat)
+        standard = COMMON
+        if type_ == chunks.CgBI:
+            standard = IOS
+            type_, payload = stream.chunk()
+        header = parsing.Header.parse(payload, standard)
+        palette = None
+        transparency = None
+        idat = bytearray()
+        while True:
+            type_, payload = stream.chunk()
+            if type_ == chunks.PLTE:
+                palette = parsing.Palette.parse(payload, header.pixel)
+            elif type_ == chunks.tRNS:
+                transparency = parsing.Transparency.parse(
+                    payload, header.pixel, palette)
+            elif type_ == chunks.IDAT:
+                idat += payload
+            elif type_ == chunks.IEND:
+                break
+        return header, standard, palette, transparency, bytes(idat)
 
 
 def parse_indexed(pngs: list[bytes]):
@@ -144,46 +147,47 @@ def parse_indexed(pngs: list[bytes]):
     ``None`` when any file is outside the fast path: no index, interlaced,
     iOS/CgBI, an indexed image without a palette, or mixed shapes.
     """
-    bodies, indexes, headers, pals, keys = [], [], [], [], []
-    for data in pngs:
-        src = chunks.ByteSource(data)
-        src.signature()
-        type_, payload = src.chunk()
-        if type_ != chunks.IHDR:
-            return None  # CgBI (iOS stream framing) or malformed order
-        header = parsing.Header.parse(payload)
-        idats, ix, palette, transparency = [], None, None, None
-        while type_ != chunks.IEND:
+    with trace.span("decode.lex"):
+        bodies, indexes, headers, pals, keys = [], [], [], [], []
+        for data in pngs:
+            src = chunks.ByteSource(data)
+            src.signature()
             type_, payload = src.chunk()
-            if type_ == chunks.IDAT:
-                idats.append(payload)
-            elif type_ == chunks.spIx:
-                try:
-                    ix = CheckpointIndex.parse(payload)
-                except ValueError:
-                    ix = None  # unknown version/shape: general path
-            elif type_ == chunks.PLTE:
-                palette = parsing.Palette.parse(payload, header.pixel)
-            elif type_ == chunks.tRNS:
-                transparency = parsing.Transparency.parse(
-                    payload, header.pixel, palette)
-        if ix is None or header.interlaced:
+            if type_ != chunks.IHDR:
+                return None  # CgBI (iOS stream framing) or malformed order
+            header = parsing.Header.parse(payload)
+            idats, ix, palette, transparency = [], None, None, None
+            while type_ != chunks.IEND:
+                type_, payload = src.chunk()
+                if type_ == chunks.IDAT:
+                    idats.append(payload)
+                elif type_ == chunks.spIx:
+                    try:
+                        ix = CheckpointIndex.parse(payload)
+                    except ValueError:
+                        ix = None  # unknown version/shape: general path
+                elif type_ == chunks.PLTE:
+                    palette = parsing.Palette.parse(payload, header.pixel)
+                elif type_ == chunks.tRNS:
+                    transparency = parsing.Transparency.parse(
+                        payload, header.pixel, palette)
+            if ix is None or header.interlaced:
+                return None
+            if header.pixel.is_indexed and palette is None:
+                return None
+            bodies.append(b"".join(idats)[2:-4])
+            indexes.append(ix)
+            headers.append(header)
+            pals.append(palette)
+            keys.append(transparency)
+        if (len({ix.out_size for ix in indexes}) != 1
+                or len({ix.ob for ix in indexes}) != 1):
+            return None  # mixed shapes: bucket upstream
+        h0 = headers[0]
+        if any(h.pixel.name != h0.pixel.name or h.size != h0.size
+               for h in headers):
             return None
-        if header.pixel.is_indexed and palette is None:
-            return None
-        bodies.append(b"".join(idats)[2:-4])
-        indexes.append(ix)
-        headers.append(header)
-        pals.append(palette)
-        keys.append(transparency)
-    if (len({ix.out_size for ix in indexes}) != 1
-            or len({ix.ob for ix in indexes}) != 1):
-        return None  # mixed shapes: bucket upstream
-    h0 = headers[0]
-    if any(h.pixel.name != h0.pixel.name or h.size != h0.size
-           for h in headers):
-        return None
-    return bodies, indexes, h0, pals, keys
+        return bodies, indexes, h0, pals, keys
 
 
 def decode_indexed(pngs: list[bytes], bits: int = 8, device=None):
@@ -198,22 +202,25 @@ def decode_indexed(pngs: list[bytes], bits: int = 8, device=None):
     and chroma keys.
     """
     dev = resolve_device(device)
-    parsed = parse_indexed(pngs)
-    if parsed is None:
-        return None
-    bodies, indexes, h0, pals, keys = parsed
-    out, _ = CheckpointInflator(dev).run(bodies, indexes)
-    W, H = h0.size
-    pixel = h0.pixel
-    pal, key = _palette_key_arrays(pixel, pals, keys)
-    return decode_stage(
-        out.reshape(len(pngs), H, 1 + ((W * pixel.volume + 7) >> 3)),
-        delay=(pixel.volume + 7) >> 3, depth=pixel.depth,
-        channels=pixel.channels, width=W, is_indexed=pixel.is_indexed,
-        palette=None if pal is None else torch.from_numpy(pal).to(dev),
-        has_key=key is not None,
-        key=None if key is None else torch.from_numpy(key).to(dev),
-        bits=bits)
+    with trace.span("decode_indexed"):
+        trace.count("images", len(pngs))
+        parsed = parse_indexed(pngs)
+        if parsed is None:
+            return None
+        bodies, indexes, h0, pals, keys = parsed
+        out, _ = CheckpointInflator(dev).run(bodies, indexes)
+        W, H = h0.size
+        pixel = h0.pixel
+        pal, key = _palette_key_arrays(pixel, pals, keys)
+        out = decode_stage(
+            out.reshape(len(pngs), H, 1 + ((W * pixel.volume + 7) >> 3)),
+            delay=(pixel.volume + 7) >> 3, depth=pixel.depth,
+            channels=pixel.channels, width=W, is_indexed=pixel.is_indexed,
+            palette=None if pal is None else trace.upload(pal, dev),
+            has_key=key is not None,
+            key=None if key is None else trace.upload(key, dev),
+            bits=bits)
+        return out
 
 
 def encode_stage(rows: torch.Tensor, delay: int) -> torch.Tensor:
@@ -384,7 +391,7 @@ class BatchCodec:
             return np.stack(batch), info
         if device_inflate:
             return torch.stack(batch), info
-        return torch.from_numpy(np.stack(batch)).to(self.device), info
+        return trace.upload(np.stack(batch), self.device), info
 
     def decode(self, images_png: list[bytes], bits: int = 8,
                device_inflate: bool = True, keep_on_device: bool = False):
@@ -399,38 +406,42 @@ class BatchCodec:
         The filtered scanlines stay on the device between the inflate and
         the defilter.
         """
-        filtered, info = self.decode_filtered(images_png, device_inflate,
-                                              keep_on_device=True)
-        W, H = info["size"]
-        pixel = info["pixel"]
-        pal, key = _palette_key_arrays(pixel, info["palettes"],
-                                       info["transparencies"])
-        pal = None if pal is None else torch.from_numpy(pal).to(self.device)
-        key = None if key is None else torch.from_numpy(key).to(self.device)
-        # CgBI streams store bgr8/bgra8 byte order
-        is_bgr = info["standard"] == IOS and pixel.channels >= 3
+        with trace.span("decode"):
+            trace.count("images", len(images_png))
+            filtered, info = self.decode_filtered(
+                images_png, device_inflate, keep_on_device=True)
+            W, H = info["size"]
+            pixel = info["pixel"]
+            pal, key = _palette_key_arrays(pixel, info["palettes"],
+                                           info["transparencies"])
+            pal = None if pal is None else trace.upload(pal, self.device)
+            key = None if key is None else trace.upload(key, self.device)
+            # CgBI streams store bgr8/bgra8 byte order
+            is_bgr = info["standard"] == IOS and pixel.channels >= 3
 
-        def run(lo: int, hi: int) -> torch.Tensor:
-            pal_b = None if pal is None else pal[lo:hi]
-            key_b = None if key is None else key[lo:hi]
-            if info["interlaced"]:
-                samples = deinterlace_samples(filtered[lo:hi], size=(W, H),
-                                              depth=pixel.depth,
-                                              channels=pixel.channels)
-                return convolve.samples_to_rgba(
-                    samples, depth=pixel.depth, channels=pixel.channels,
+            def run(lo: int, hi: int) -> torch.Tensor:
+                pal_b = None if pal is None else pal[lo:hi]
+                key_b = None if key is None else key[lo:hi]
+                if info["interlaced"]:
+                    with trace.span("decode.stage"):
+                        samples = deinterlace_samples(
+                            filtered[lo:hi], size=(W, H),
+                            depth=pixel.depth, channels=pixel.channels)
+                        return convolve.samples_to_rgba(
+                            samples, depth=pixel.depth,
+                            channels=pixel.channels, is_bgr=is_bgr,
+                            is_indexed=pixel.is_indexed,
+                            has_key=key_b is not None, palette=pal_b,
+                            key=key_b, bits=bits)
+                return decode_stage(
+                    filtered[lo:hi], delay=(pixel.volume + 7) >> 3,
+                    depth=pixel.depth, channels=pixel.channels, width=W,
                     is_bgr=is_bgr, is_indexed=pixel.is_indexed,
                     has_key=key_b is not None, palette=pal_b, key=key_b,
                     bits=bits)
-            return decode_stage(
-                filtered[lo:hi], delay=(pixel.volume + 7) >> 3,
-                depth=pixel.depth, channels=pixel.channels, width=W,
-                is_bgr=is_bgr, is_indexed=pixel.is_indexed,
-                has_key=key_b is not None, palette=pal_b, key=key_b,
-                bits=bits)
 
-        out = self._sharded(run, filtered.shape[0])
-        return out if keep_on_device else out.cpu().numpy()
+            out = self._sharded(run, filtered.shape[0])
+            return out if keep_on_device else trace.fetch(out).numpy()
 
     # -- encode -----------------------------------------------------------
 
@@ -466,68 +477,77 @@ class BatchCodec:
         without it the host ``Deflator``.  A failure of the device parse
         raises (the JAX package falls back to the native deflate there).
         """
-        if kind is None:
-            kind = "rgba8" if bits == 8 else "rgba16"
-        x = (pixels if isinstance(pixels, torch.Tensor)
-             else torch.from_numpy(np.ascontiguousarray(pixels)))
-        if x.dim() == 3:
-            x = x[..., None]
-        B, H, W, Cn = x.shape
-        if palettes is None:
-            palettes = [palette] * B
-        if len(palettes) != B:
-            raise ValueError("palettes must have one entry per image")
-        mds = (metadata if isinstance(metadata, (list, tuple))
-               else [metadata] * B)
-        layouts = [Layout(Format(kind, tuple(p) if p else ()), interlaced)
-                   for p in palettes]
-        pixel = layouts[0].format.pixel
-        if pixel.channels != Cn:
-            raise ValueError(f"{kind} wants {pixel.channels} channels, "
-                             f"got {Cn}")
-        delay = max(1, (pixel.volume + 7) >> 3)
-        samples = x.to(device=self.device, dtype=torch.int32)
-        filtered = self._sharded(lambda lo, hi: filter_batch(
-            samples[lo:hi], pixel.depth, Cn, interlaced), B)
-        flat_np = filtered.cpu().numpy()
-        datas = [flat_np[b].tobytes() for b in range(B)]
+        with trace.span("encode"):
+            if kind is None:
+                kind = "rgba8" if bits == 8 else "rgba16"
+            x = (pixels if isinstance(pixels, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(pixels)))
+            if x.dim() == 3:
+                x = x[..., None]
+            B, H, W, Cn = x.shape
+            trace.count("images", B)
+            if palettes is None:
+                palettes = [palette] * B
+            if len(palettes) != B:
+                raise ValueError("palettes must have one entry per image")
+            mds = (metadata if isinstance(metadata, (list, tuple))
+                   else [metadata] * B)
+            layouts = [Layout(Format(kind, tuple(p) if p else ()),
+                              interlaced) for p in palettes]
+            pixel = layouts[0].format.pixel
+            if pixel.channels != Cn:
+                raise ValueError(f"{kind} wants {pixel.channels} channels, "
+                                 f"got {Cn}")
+            delay = max(1, (pixel.volume + 7) >> 3)
+            with trace.sync():
+                samples = x.to(device=self.device, dtype=torch.int32)
+            with trace.span("encode.filter"):
+                filtered = self._sharded(lambda lo, hi: filter_batch(
+                    samples[lo:hi], pixel.depth, Cn, interlaced), B)
+                flat_np = trace.fetch(filtered).numpy()
+                datas = [flat_np[b].tobytes() for b in range(B)]
 
-        use_native = _native.available()
-        idats = None
-        if shared_trees:
-            idats = deflate_shared_trees(datas, level, device=self.device)
-        elif level >= 8 and (self.device.type != "cpu" or not use_native):
-            n_flat = filtered.shape[1]
-            stride = batch_layout([n_flat] * B)[0]
-            dbuf = torch.nn.functional.pad(filtered, (0, stride - n_flat))
-            # the JAX package passes the full width's pitch, interlaced
-            # or not
-            idats = deflate_device_optimal_batch(
-                datas, level=level, pitch=W * delay + 1, bpp=delay,
-                device=self.device, dbuf=dbuf.reshape(-1),
-                size_policy=size_policy)
-        outs = []
-        for b, data in enumerate(datas):
-            if idats is not None:
-                idat = idats[b]
-            elif use_native:
-                idat = _native.deflate(data, level, "zlib",
-                                       block_terms=1 << 22 if index else 0)
-            else:
-                deflator = Deflator("zlib", level=level)
-                deflator.push(data, last=True)
-                idat = deflator.pull()
-            dest = chunks.ByteDestination()
-            write_pre_idat(dest, (W, H), layouts[b], mds[b] or Metadata())
-            for ofs in range(0, len(idat), hint):
-                dest.format(chunks.IDAT, idat[ofs:ofs + hint])
-            if index and not interlaced:
-                ix = build_index(idat[2:-4], len(data), 256)
-                if ix is not None:
-                    dest.format(chunks.spIx, ix.serialize())
-            dest.format(chunks.IEND)
-            outs.append(dest.getvalue())
-        return outs
+            use_native = _native.available()
+            idats = None
+            if shared_trees:
+                idats = deflate_shared_trees(datas, level, device=self.device)
+            elif level >= 8 and (self.device.type != "cpu" or not use_native):
+                n_flat = filtered.shape[1]
+                stride = batch_layout([n_flat] * B)[0]
+                dbuf = torch.nn.functional.pad(filtered, (0, stride - n_flat))
+                # the JAX package passes the full width's pitch, interlaced
+                # or not
+                idats = deflate_device_optimal_batch(
+                    datas, level=level, pitch=W * delay + 1, bpp=delay,
+                    device=self.device, dbuf=dbuf.reshape(-1),
+                    size_policy=size_policy)
+            outs = []
+            for b, data in enumerate(datas):
+                if idats is not None:
+                    idat = idats[b]
+                elif use_native:
+                    idat = _native.deflate(
+                        data, level, "zlib",
+                        block_terms=1 << 22 if index else 0)
+                else:
+                    deflator = Deflator("zlib", level=level)
+                    deflator.push(data, last=True)
+                    idat = deflator.pull()
+                ix = None
+                if index and not interlaced:
+                    with trace.span("encode.index"):
+                        ix = build_index(idat[2:-4], len(data), 256)
+                with trace.span("encode.container"):
+                    dest = chunks.ByteDestination()
+                    write_pre_idat(dest, (W, H), layouts[b],
+                                   mds[b] or Metadata())
+                    for ofs in range(0, len(idat), hint):
+                        dest.format(chunks.IDAT, idat[ofs:ofs + hint])
+                    if ix is not None:
+                        dest.format(chunks.spIx, ix.serialize())
+                    dest.format(chunks.IEND)
+                    outs.append(dest.getvalue())
+            return outs
 
 
 def shared_tokens(payloads: list[bytes], level: int, device) -> list:
@@ -539,8 +559,9 @@ def shared_tokens(payloads: list[bytes], level: int, device) -> list:
         N = 1 << max(12, n.bit_length())
         buf = torch.zeros(N, dtype=torch.uint8)
         buf[:n] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
-        terms, _, count = greedy_tokens(buf.to(device), n, t_cap=N,
-                                        lazy=level >= 4)
+        with trace.sync():
+            buf = buf.to(device)
+        terms, _, count = greedy_tokens(buf, n, t_cap=N, lazy=level >= 4)
         toks.append((terms, count))
     return toks
 
@@ -551,7 +572,7 @@ def shared_tree(toks: list):
     lengths, dist lengths), freq)``."""
     freq = np.zeros(320, np.int64)
     for terms, count in toks:
-        freq += term_frequencies(terms[:count].cpu().numpy(),
+        freq += term_frequencies(trace.fetch(terms[:count]).numpy(),
                                  np.ones(count, bool))
     freq[256] = len(toks)
     return (lengths_from_frequencies(freq[:286], 15, force=True),
