@@ -26,6 +26,8 @@ port's paths at the bench size (B = 32 streams of 512×512 rgba8, ob = 256):
   ``spIx`` chunk: rgba8, Adam7 and iOS (CgBI) bgra8 batches of the bench
   images (the fused inflate per image, K3 once or once per Adam7 pass,
   the convolve), with the lockstep ``InflateFusedBatch`` timed beside it;
+  then the general inflate's kernel ``inflate_stream`` against the plain
+  version on :func:`inflate_stream_cases` and timed at those shapes;
 * the level-9 encode (``BatchCodec.encode``, strict size policy) of
   photographic and smooth images, read back through
   :func:`decode_indexed` (K4, K5, K6; K1, K3 or K2);
@@ -399,6 +401,162 @@ def general_png(px: np.ndarray, config: str, hint: int = 1 << 15) -> bytes:
     return plain_png(w, h, s[2:-4] if config == "cgbi" else s,
                      interlaced=config == "adam7", cgbi=config == "cgbi",
                      hint=hint)
+
+
+def _fixed_block(tokens, final: bool) -> tuple[int, int]:
+    """One fixed-Huffman block of ``tokens`` (a literal byte, ``(len,
+    dist)`` with len in 3..10 or 258 and dist in 1..4 or 5..6, or ``"bad"``,
+    the unused length symbol 286), as ``(bits, count)`` LSB first."""
+    from swift_png_tpu_torch._host.bits import reverse_bits
+
+    acc = n = 0
+
+    def put(v, k):
+        nonlocal acc, n
+        acc |= v << n
+        n += k
+
+    put(int(final), 1)
+    put(1, 2)
+    for t in tokens:
+        if isinstance(t, int):
+            put(reverse_bits(0x30 + t, 8) if t < 144
+                else reverse_bits(0x190 + t - 144, 9), 8 if t < 144 else 9)
+        elif t == "bad":
+            put(reverse_bits(0xC0 + 286 - 280, 8), 8)
+        else:
+            length, dist = t
+            if length == 258:
+                put(reverse_bits(0xC0 + 285 - 280, 8), 8)
+            else:
+                put(reverse_bits(length - 2, 7), 7)     # symbols 257-264
+            dsym = dist - 1 if dist <= 4 else 4
+            put(reverse_bits(dsym, 5), 5)
+            if dsym == 4:
+                put(dist - 5, 1)
+    put(0, 7)                                           # end of block
+    return acc, n
+
+
+def _join_blocks(blocks) -> bytes:
+    acc = n = 0
+    for v, k in blocks:
+        acc |= v << n
+        n += k
+    return acc.to_bytes((n + 7) // 8, "little")
+
+
+def inflate_stream_cases(seed: int = 0, corrupt: int = 64) -> dict:
+    """Raw DEFLATE bodies for the general inflate, ``name → (body,
+    out_size)``: zlib levels 1, 6 and 9, fixed, stored and mixed blocks, 64
+    blocks, distances 1-3 and 32,768, an empty stream, outputs of 120-140
+    KB, a repeat code right after a zero run, a bad distance before a valid
+    or a reserved block type, a stream past the token cap, outputs
+    declared short and long, a block dropped after more than 64 KB of
+    output, an empty stored block before a reserved type, and ``corrupt``
+    seeded corruptions of the valid ones (bit flips, truncations, bytes overwritten, stored lengths
+    off parity, reserved block types)."""
+    from swift_png_tpu_torch._host.bits import BitWriter, reverse_bits
+
+    rng = np.random.default_rng(seed)
+    y = np.sin(np.arange(24_000) / 11.0) * 60 + 128
+    noisy = np.clip(y + rng.normal(0, 9, y.size), 0, 255).astype(
+        np.uint8).tobytes()
+    rand = rng.integers(0, 256, 40_000, dtype=np.uint8).tobytes()
+    runs = bytes(3000) + bytes([1, 2]) * 1500 + bytes([5, 6, 7]) * 1000
+
+    def raw(data, level=6, strategy=zlib.Z_DEFAULT_STRATEGY, pieces=None,
+            flush=zlib.Z_BLOCK):
+        co = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
+        cuts = pieces or [len(data)]
+        out, at = b"", 0
+        for c in cuts:
+            out += co.compress(data[at:at + c]) + co.flush(flush)
+            at += c
+        return out + co.flush()
+
+    cases = {f"zlib{lv}": (raw(noisy, lv), len(noisy)) for lv in (1, 6, 9)}
+    cases["fixed"] = (raw(noisy, 6, zlib.Z_FIXED), len(noisy))
+    cases["stored"] = (raw(rand[:20_000], 0), 20_000)
+    mixed = rand[:6000] + noisy[:9000] + b"short" + runs[:4000]
+    cases["mixed"] = (raw(mixed, 6, pieces=[6000, 9000, 5, 4000],
+                          flush=zlib.Z_FULL_FLUSH), len(mixed))
+    cases["blocks64"] = (raw(noisy, 6, pieces=[375] * 64), len(noisy))
+    cases["short_dist"] = (raw(runs, 9), len(runs))
+    far = rand[:32_768] + rand[:3000]
+    cases["dist32768"] = (raw(far, 9), len(far))
+    cases["empty"] = (raw(b""), 0)
+    # outputs past the kernel's 64 KB ring: matches across its turns
+    long = (noisy * 4)[:70_000] + rand[:20_000] + noisy[:50_000]
+    cases["long"] = (raw(long, 6), len(long))
+    cases["stored_long"] = (raw(rand[:40_000] * 3, 0), 120_000)
+
+    # code-length 16 right after a 17 run repeats 0 (5 zero bytes)
+    bw = BitWriter()
+    bw.write(1, 1)
+    bw.write(2, 2)
+    bw.write(0, 5)
+    bw.write(0, 5)
+    bw.write(18 - 4, 4)
+    meta_len = {0: 3, 1: 3, 16: 2, 17: 2, 18: 2}
+    for s in (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1):
+        bw.write(meta_len.get(s, 0), 3)
+    code = {16: (0, 2), 17: (1, 2), 18: (2, 2), 0: (6, 3), 1: (7, 3)}
+    for sym, extra, k in ((1, 0, 0), (18, 127, 7), (18, 94, 7), (17, 3, 3),
+                          (16, 0, 2), (17, 0, 3), (1, 0, 0), (0, 0, 0)):
+        c, ln = code[sym]
+        bw.write(reverse_bits(c, ln), ln)
+        bw.write(extra, k)
+    bw.write(0, 5)
+    bw.write(1, 1)
+    bw.pad_to_byte()
+    cases["repeat16"] = (bytes(bw.drain()), 5)
+
+    # a match past byte 0, then a valid final block or a reserved type
+    bad = _fixed_block([65, (3, 5)], False)
+    cases["bad_dist"] = (_join_blocks([bad, _fixed_block([66], True)]), 5)
+    cases["bad_dist_reserved"] = (_join_blocks([bad, (0b111, 3)]), 5)
+    valid = dict(cases)
+    cases["token_cap"] = (raw(rand[:5000], 6, zlib.Z_HUFFMAN_ONLY), 100)
+    cases["output_long"] = (raw(runs, 9), len(runs) - 7)
+    cases["output_short"] = (raw(noisy, 6), len(noisy) + 1)
+    # a block dropped after more output than the kernel's 64 KB ring (at a
+    # bad code; or valid and then short of out_size, where a small rank
+    # budget drops it), after a block that ends in a match
+    head = _fixed_block([97, 98, 99, (3, 3)], False)
+    cases["dropped_bad"] = (_join_blocks(
+        [head, _fixed_block([122] + [(258, 1)] * 300 + ["bad"], True)]),
+        100_000)
+    cases["dropped_long"] = (_join_blocks(
+        [head, _fixed_block([122] + [(258, 1)] * 600, True)]), 200_000)
+    # an empty stored block, then a reserved type: no token has bytes
+    cases["stored_empty_reserved"] = (_join_blocks(
+        [(0, 8), (0xFFFF << 16, 32), (0b111, 3)]), 5)
+
+    names = list(valid)
+    kinds = ("flip", "trunc", "byte", "parity", "reserved")
+    for i in range(corrupt):
+        name = names[i % len(names)]
+        body, size = valid[name]
+        b = bytearray(body)
+        kind = kinds[i % len(kinds)]
+        if kind == "flip" and b:
+            for _ in range(int(rng.integers(1, 4))):
+                bit = int(rng.integers(0, 8 * len(b)))
+                b[bit >> 3] ^= 1 << (bit & 7)
+        elif kind == "trunc":
+            b = b[:int(rng.integers(0, max(len(b), 1)))]
+        elif kind == "byte" and b:
+            b[int(rng.integers(0, len(b)))] = int(rng.integers(0, 256))
+        elif kind == "parity":
+            ln = int(rng.integers(0, 1 << 16))
+            b = bytearray([0]) + ln.to_bytes(2, "little") + (
+                ln ^ 0xFFFF ^ (1 << int(rng.integers(0, 16)))).to_bytes(
+                2, "little") + b
+        else:
+            b = bytearray([0b110 | int(rng.integers(0, 2))]) + b
+        cases[f"{kind}{i}_{name}"] = (bytes(b), size)
+    return cases
 
 
 @contextlib.contextmanager
@@ -1993,9 +2151,9 @@ def general_decode_path(dev, config: str) -> dict:
     recipe (:func:`general_png`; no ``spIx``): the fused inflate per image,
     K3 (once per Adam7 pass), the convolve.  Exact against the source
     pixels, K3 launched and held against its plain version at every shape
-    the batch gives it; the stage split, and the lockstep
-    ``InflateFusedBatch.inflate_batch`` of the same streams as a figure
-    beside the path."""
+    the batch gives it, ``inflate_stream`` launched once an image; the
+    stage split, and the lockstep ``InflateFusedBatch.inflate_batch`` of
+    the same streams as a figure beside the path."""
     from swift_png_tpu_torch import BatchCodec, _kernels
     from swift_png_tpu_torch.ops import convolve
     from swift_png_tpu_torch.ops.deinterlace import (deinterlace_samples,
@@ -2024,6 +2182,9 @@ def general_decode_path(dev, config: str) -> dict:
     if launches["defilter"] != want_k3:
         fail(f"general_decode {config}: K3 launched "
              f"{launches['defilter']} times, not {want_k3}")
+    if launches["inflate_stream"] != B:
+        fail(f"general_decode {config}: inflate_stream launched "
+             f"{launches['inflate_stream']} times, not once an image")
     if out.device != want.device or not torch.equal(out, want):
         fail(f"general_decode {config}: pixels differ from the source")
     times = host_ms(lambda: codec.decode(pngs, keep_on_device=True),
@@ -2095,7 +2256,108 @@ def general_decode_path(dev, config: str) -> dict:
          k3=k3, launches=launches, pixels_equal=True, trace=trace,
          batch_inflate=dict(ms=batch_ms, blocks=beng.last_run["blocks"],
                             retries=beng.last_run["retries"]))
-    return dict(k3_err=k3_err, k3_launches=launches["defilter"])
+    return dict(k3_err=k3_err, k3_launches=launches["defilter"],
+                inflate_launches=launches["inflate_stream"])
+
+
+def inflate_stream_phase(dev) -> dict:
+    """``inflate_stream`` (``csrc/inflate_stream.cu``), the general
+    inflate's kernel.  ``InflateFused.run`` on the card against the CPU on
+    :func:`inflate_stream_cases` (the same bytes and Adler-32 or the same
+    error, the same blocks and retries); then at ``decode_png``'s shapes,
+    the benchmark's ordinary 512×512 PNGs (:func:`general_png` rgba8, zlib
+    -6): the kernel's bytes held against zlib's on the 32 streams in one
+    launch and against the plain version (the torch ops, on the card) on
+    one stream, the kernel timed with CUDA events on one stream and on the
+    32, ``InflateFused.run`` of one stream on the host clock (with its
+    retries), and the plain version timed on one stream."""
+    from swift_png_tpu_torch import _kernels
+    from swift_png_tpu_torch._host.lz77.errors import DecompressionError
+    from swift_png_tpu_torch.ops import inflate_fused as F
+    from swift_png_tpu_torch.parallel.batch import lex_png
+
+    def outcome(eng, body, size):
+        try:
+            out, adler = eng.run(body, size)
+            got = bytes(out[:size].cpu().numpy()), adler
+        except DecompressionError as e:
+            got = type(e).__name__, e.case
+        return got, dict(eng.last_run)
+
+    t0 = time.perf_counter()
+    cases = inflate_stream_cases()
+    wrong, failed = [], 0
+    for name, (body, size) in cases.items():
+        got = outcome(F.InflateFused(device=dev), body, size)
+        if got != outcome(F.InflateFused(device="cpu"), body, size):
+            wrong.append(name)
+        failed += not isinstance(got[0][0], bytes)
+    if wrong:
+        fail(f"inflate_stream differs from the plain version on {wrong}")
+    check_s = time.perf_counter() - t0
+
+    images = [bench_image(seed) for seed in range(DISTINCT)]
+    bodies = [lex_png(general_png(px, "rgba8"))[4][2:-4] for px in images]
+    raw = [zlib.decompressobj(-15).decompress(b) for b in bodies]
+    order = [i % DISTINCT for i in range(B)]
+    nbytes = H * (1 + 4 * W)
+    eng = F.InflateFused(device=dev)
+    caps = eng._caps(bodies, nbytes)
+    first = (eng.win_bytes, eng.t_max)
+    last = first if first[0] >= caps[0] and first[1] >= caps[1] else caps
+    stride = (max(map(len, bodies)) + 3) & ~3
+    rows = np.zeros((B, stride), np.uint8)
+    for i, j in enumerate(order):
+        rows[i, :len(bodies[j])] = np.frombuffer(bodies[j], np.uint8)
+    D = torch.from_numpy(rows).to(dev)
+    n = stride + max(first[0], last[0]) + 8
+
+    def launch(d):
+        return F.inflate_stream_cuda(d, n, nbytes, first, last,
+                                     eng.max_blocks, nbytes + 1)
+    _kernels.reset_launches()
+    out, info = launch(D)
+    torch.cuda.synchronize()
+    if _kernels.launch_counts()["inflate_stream"] != 1:
+        fail("inflate_stream: one launch for the batch expected")
+    want = torch.from_numpy(np.stack([np.frombuffer(raw[j], np.uint8)
+                                      for j in order])).to(dev)
+    err = max_abs([(out[:, :nbytes], want)])
+    if info[:, 0].any() or err:
+        fail("inflate_stream: the batch's streams differ from zlib's")
+    one_ms = cuda_ms(lambda: launch(D[:1]), 5)
+    batch_ms = cuda_ms(lambda: launch(D), 3)
+    run_ms = host_ms(lambda: eng.run(bodies[0], nbytes), 3)
+    retries = eng.last_run["retries"]
+    Dh = np.zeros((1, 1 << max(12, (len(bodies[0]) + first[0] + 7)
+                               .bit_length())), np.uint8)
+    Dh[0, :len(bodies[0])] = np.frombuffer(bodies[0], np.uint8)
+
+    def plain():
+        return F._inflate(Dh, torch.from_numpy(Dh).to(dev), nbytes,
+                          first[0], first[1], eng.max_blocks, nbytes + 1)
+    plain_ms = host_ms(plain, 1)
+    err = max(err, max_abs([(out[0], plain()[0][0])]))      # stream 0
+    if err:
+        fail("inflate_stream: a stream differs from the plain version")
+    in_bytes = sum(len(bodies[j]) for j in order)
+    b_one = bound(len(bodies[0]) + nbytes, 0)
+    b_batch = bound(in_bytes + B * nbytes, 0)
+    line = dict(phase="inflate_stream", cases=len(cases),
+                cases_failing_alike=failed, check_seconds=check_s,
+                compressed_bytes=[len(b) for b in bodies], out_bytes=nbytes,
+                blocks=int(info[0, 2]), ms_one_stream=one_ms,
+                ms_batch=batch_ms, streams=B,
+                mb_per_s_one_stream=nbytes / one_ms / 1e3,
+                mb_per_s_batch=B * nbytes / batch_ms / 1e3,
+                run_ms=run_ms, retries=retries, max_abs_err=err,
+                plain_ms_one_stream=plain_ms,
+                bound_ms_one_stream=b_one[0], bound_ms_batch=b_batch[0],
+                bound_by=b_batch[1],
+                ptxas=_kernels.KERNELS["inflate_stream"].ptxas.strip())
+    emit(**line)
+    return dict(ms=batch_ms, plain_ms=plain_ms[0], bound_ms=b_batch[0],
+                bound_by=b_batch[1], max_abs_err=err)
 
 
 # ---- the single-image API, gzip and the CLI (host_api) ---------------------
@@ -2681,8 +2943,12 @@ def main() -> int:
     k2_err = max(k2_err, k2["max_abs_err"])
     sweeps_path(dev)
     host_tier_path(dev)
+    gd_inflate = {}
     for config in GD_CONFIGS:
-        k3_err = max(k3_err, general_decode_path(dev, config)["k3_err"])
+        gd = general_decode_path(dev, config)
+        k3_err = max(k3_err, gd["k3_err"])
+        gd_inflate[f"general_decode_{config}"] = gd["inflate_launches"]
+    ist = inflate_stream_phase(dev)
 
     # ---- encode: K4, K5, K6 against their plain versions, then the path ----
     checks = [encode_kernel_checks(dev, config, encode_images(config, 4, 256,
@@ -2789,6 +3055,16 @@ def main() -> int:
              bound_ms=k2["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),
         *encode_kernels,
+        # no TPU kernel: the JAX package's fused inflate is XLA code; one
+        # launch an image on the general decode (its launches a batch of B
+        # images), 32 streams in one where it is timed
+        dict(name="inflate_stream", route="cuda",
+             source="swift_png_tpu_torch/csrc/inflate_stream.cu",
+             replaces=None, launches=gd_inflate["general_decode_rgba8"],
+             launches_by_path=gd_inflate, max_abs_err=ist["max_abs_err"],
+             ms=ist["ms"],
+             plain_ms=ist["plain_ms"], bound_ms=ist["bound_ms"],
+             bound_by=ist["bound_by"], library_ms=None),
     ])
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

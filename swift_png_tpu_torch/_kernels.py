@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 class Kernel:
@@ -89,7 +90,10 @@ KERNELS = {
     "dp_parse": Kernel("dp_parse", "dp_parse.cu", "spt_dp_parse",
                        [_P] * 11 + [_I] * 2 + [_P]),
     "emit": Kernel("emit", "emit.cu", "spt_emit",
-                   [_P] * 5 + [ctypes.c_longlong, _I, _P]),
+                   [_P] * 5 + [_L, _I, _P]),
+    "inflate_stream": Kernel("inflate_stream", "inflate_stream.cu",
+                             "spt_inflate_stream",
+                             [_P, _L, _L, _I, _P] + [_L] * 8 + [_P, _P]),
 }
 _LOCK = threading.Lock()
 

@@ -32,6 +32,13 @@ sign-extend.
 :func:`inflate_fused_batch` runs B streams in lockstep, each block step over
 the streams still decoding; every stream gets what :func:`inflate_fused`
 gives it alone (as ``vmap`` of the JAX function does).
+
+That is the plain version, for CPU tensors.  On a CUDA device every entry
+point here launches ``inflate_stream`` (``csrc/inflate_stream.cu``)
+instead: one warp per stream decodes the whole stream serially, with the
+same status, end bit, block count, bytes and Adler-32, a failed stream's
+included.  It also takes the retry loop of :class:`InflateFused`'s budgets
+in one launch (:func:`_inflate_cuda`).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import trace
+from .. import _kernels, trace
 from .._host.lz77 import constants as C
 from .._host.lz77.errors import (DecompressionError, GzipStreamHeaderError,
                                  StreamHeaderError)
@@ -513,6 +520,69 @@ def _inflate(Dh: np.ndarray, Dd: torch.Tensor, out_size: int,
     return outp, status, bitpos, fin[2], blk
 
 
+def inflate_stream_cuda(D: torch.Tensor, n: int, out_size: int,
+                        first: tuple, last: tuple, max_blocks: int,
+                        tok_cap: int):
+    """Launch ``inflate_stream`` over the rows of ``D`` (``(B, stride)``
+    uint8 on the card, ``stride`` a multiple of 4, 4-byte aligned), each
+    read as ``n`` bytes (those past ``stride`` as 0), at the budgets
+    ``first`` and ``last`` (window bytes, rank budget): the first and last
+    of the retry loop, or one budget twice.  ``n`` holds the code-length
+    window and the largest window (``lax.dynamic_slice`` refuses a slice
+    longer than its row).  Returns ``out`` ``(B, out_size`` padded to 32
+    K``)`` uint8 and ``info`` ``(B, 8)`` int64 (status, end bit, blocks,
+    the largest window bits and ranks a block needs, 1 where the token cap
+    overflowed, the bytes of the tokens, 0), both on the card."""
+    _kernels.require(D, "D", torch.uint8, 2)
+    B, stride = D.shape
+    if stride % 4 or D.data_ptr() % 4:
+        raise ValueError(f"the rows must be 4-byte aligned words: stride "
+                         f"{stride}, address {D.data_ptr():#x}")
+    need = max(_TWIN_WORDS, first[0], last[0]) + 3
+    if n < need:
+        raise ValueError(f"a row of {n} bytes is shorter than the "
+                         f"{need} its windows take")
+    out = torch.zeros((B, out_size + (-out_size) % 32768), dtype=torch.uint8,
+                      device=D.device)
+    info = torch.empty((B, 8), dtype=torch.int64, device=D.device)
+    _kernels.KERNELS["inflate_stream"].launch(
+        D.data_ptr(), stride, n, B, out.data_ptr(), out.shape[1], out_size,
+        first[0], first[1], last[0], last[1], tok_cap, max_blocks,
+        info.data_ptr(), _kernels.stream_of(D))
+    return out, info
+
+
+def _inflate_cuda(D: torch.Tensor, n: int, out_size: int, first: tuple,
+                  last: tuple, max_blocks: int, tok_cap: int):
+    """:func:`_inflate` of the rows of ``D`` on the card, through the
+    kernel.  Returns ``(out, status, end_bit, adler, blocks, info)``, the
+    middle four numpy ``(B,)`` and ``info`` the kernel's numpy ``(B, 8)``."""
+    if D.shape[1] % 4 or D.data_ptr() % 4 or not D.is_contiguous():
+        # whole words from an aligned start: a copy, zeros past the row
+        Dc = D.new_zeros((D.shape[0], D.shape[1] + (-D.shape[1]) % 4))
+        Dc[:, :D.shape[1]] = D
+        D = Dc
+    with trace.span("inflate_fused.blocks"):
+        out, info = inflate_stream_cuda(D, n, out_size, first, last,
+                                        max_blocks, tok_cap)
+        info = trace.fetch(info).numpy()
+    with trace.span("inflate_fused.assemble"):
+        adler = trace.fetch(_adler_device(out, out_size)).numpy()
+    return out, info[:, 0], info[:, 1], adler, info[:, 2], info
+
+
+def _fused(Ds: torch.Tensor, out_size: int, win_words: int, t_max: int,
+           max_blocks: int, tok_cap: int):
+    """``(out, status, end_bit, adler, blocks)`` of the rows of ``Ds`` at
+    one budget: the kernel on a CUDA device, :func:`_inflate` elsewhere."""
+    if Ds.device.type == "cuda":
+        budget = (win_words, t_max)
+        return _inflate_cuda(Ds, Ds.shape[1], out_size, budget, budget,
+                             max_blocks, tok_cap)[:5]
+    return _inflate(trace.fetch(Ds).numpy(), Ds, out_size, win_words, t_max,
+                    max_blocks, tok_cap)
+
+
 def inflate_fused(D: torch.Tensor, *, out_size: int, win_words: int,
                   t_max: int, max_blocks: int, tok_cap: int):
     """Decode a complete raw-DEFLATE stream on ``D``'s device.
@@ -530,9 +600,8 @@ def inflate_fused(D: torch.Tensor, *, out_size: int, win_words: int,
       ``(out (padded to 32 K), status, end_bit, adler)``; status 0 =
       success.  ``out`` is on ``D``'s device, the rest are ints.
     """
-    out, status, end_bit, adler, _ = _inflate(
-        trace.fetch(D).numpy()[None], D[None], out_size, win_words, t_max,
-        max_blocks, tok_cap)
+    out, status, end_bit, adler, _ = _fused(D[None], out_size, win_words,
+                                            t_max, max_blocks, tok_cap)
     return out[0], int(status[0]), int(end_bit[0]), int(adler[0])
 
 
@@ -542,8 +611,53 @@ def inflate_fused_batch(Ds: torch.Tensor, *, out_size: int, win_words: int,
     lockstep, each block step over the streams still decoding.  Returns
     ``(out (B, padded), status, end_bit, adler)``, the last three numpy
     ``(B,)``; row b equals :func:`inflate_fused` of ``Ds[b]``."""
-    return _inflate(trace.fetch(Ds).numpy(), Ds, out_size, win_words, t_max,
-                    max_blocks, tok_cap)[:4]
+    return _fused(Ds, out_size, win_words, t_max, max_blocks, tok_cap)[:4]
+
+
+def _raise_status(status: int):
+    """Raise the error of a failed stream's status: one per failure class,
+    the host engine's cases, the first that applies in this order."""
+    if status & F_BAD_BLOCK:
+        raise DecompressionError.invalid_block_type_code(3)
+    if status & F_BAD_PARITY:
+        raise DecompressionError.invalid_block_element_count_parity(0, 0)
+    if status & F_BAD_DISTANCE:
+        raise DecompressionError.invalid_string_reference()
+    if status & F_BAD_CODE:
+        raise DecompressionError.invalid_huffman_table()
+    if status & F_OUTPUT_MISMATCH:
+        # the wrong byte count for the declared output: a truncated or
+        # overlong body
+        raise DecompressionError.invalid_stream_checksum(0, 0)
+    if status & (F_TOO_MANY_BLOCKS | F_OVERFLOW):
+        # budgets exhausted after growing to the stream-derived ceilings:
+        # only malformed streams can get here
+        raise DecompressionError.invalid_block_type_code(3)
+    raise DecompressionError.invalid_huffman_table()
+
+
+def _retries(info: np.ndarray, first: tuple, caps: tuple) -> int:
+    """The retries :class:`InflateFused`'s loop makes from budget ``first``
+    towards ``caps`` over streams whose needs the kernel reported: a stream
+    overflows at a budget that one of its blocks does not fit, and at every
+    budget once its token cap overflowed."""
+    need_bits, need_ranks, cap = info[:, 3], info[:, 4], info[:, 5]
+    (win, t_max), retries = first, 0
+    while (((need_bits >= 8 * win - 56) | (need_ranks > t_max)
+            | (cap != 0)).any()
+           and (win < caps[0] or t_max < caps[1])):
+        win = min(win * 4, caps[0])
+        t_max = min(t_max * 4, caps[1])
+        retries += 1
+    return retries
+
+
+def _stack(bodies: list[bytes], width: int) -> np.ndarray:
+    """The bodies as the rows of a zero-padded ``(B, width)`` uint8 array."""
+    Ds = np.zeros((len(bodies), width), np.uint8)
+    for i, b in enumerate(bodies):
+        Ds[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return Ds
 
 
 def _pow2_at_least(n: int, lo: int, hi: int) -> int:
@@ -557,7 +671,9 @@ class InflateFused:
     """Host wrapper: padding buckets, the budget retry and the error
     mapping.  ``device``: ``cuda`` unless the caller names another.
     ``last_run`` holds the last run's block count (the most of any stream)
-    and its budget retries."""
+    and its budget retries.  On a CUDA device one kernel launch gives what
+    the retry loop gives (:func:`_inflate_cuda`); the retries are counted
+    from the needs it reports."""
 
     def __init__(self, win_bytes: int = 1 << 17, t_max: int = 1 << 15,
                  max_blocks: int = 1 << 14, device=None):
@@ -567,63 +683,62 @@ class InflateFused:
         self.device = resolve_device(device)
         self.last_run = {"blocks": 0, "retries": 0}
 
-    def _prepare(self, body: bytes, win_bytes: int) -> np.ndarray:
-        n = len(body)
-        bucket = 1 << max(12, (n + win_bytes + 8 - 1).bit_length())
-        D = np.zeros(bucket, np.uint8)
-        D[:n] = np.frombuffer(body, np.uint8)
-        return D
+    def _decode(self, bodies: list[bytes], out_size: int):
+        """The raw DEFLATE ``bodies`` after the budget retries: ``(out (B,
+        padded) on the device, status, adler)``, the last two numpy."""
+        if self.device.type == "cuda":
+            return self._decode_kernel(bodies, out_size)
+        return self._decode_plain(bodies, out_size)
 
-    def _run(self, Dh: np.ndarray, out_size: int, win: int, t_max: int,
-             retries: int):
-        out, status, end_bit, adler, blk = _inflate(
-            Dh, trace.upload(Dh, self.device), out_size, win, t_max,
+    @staticmethod
+    def _caps(bodies: list[bytes], out_size: int) -> tuple[int, int]:
+        """The retry loop's ceilings: valid single blocks may span the whole
+        stream and carry up to out_size+1 tokens — the ceilings must cover
+        both, or valid data gets mislabeled corrupt."""
+        return (_pow2_at_least(max(len(b) for b in bodies) + 16, 1 << 12,
+                               1 << 30),
+                _pow2_at_least(out_size + 1, 1 << 10, 1 << 30))
+
+    def _decode_plain(self, bodies: list[bytes], out_size: int):
+        caps = self._caps(bodies, out_size)
+        nmax = max(len(b) for b in bodies)
+        win, t_max, retries = self.win_bytes, self.t_max, 0
+        while True:
+            Ds = _stack(bodies, 1 << max(12, (nmax + win + 7).bit_length()))
+            out, st, _, adler, blk = _inflate(
+                Ds, trace.upload(Ds, self.device), out_size, win, t_max,
+                self.max_blocks, out_size + 1)
+            self.last_run = {"blocks": int(blk.max()), "retries": retries}
+            if (st & F_OVERFLOW).any() and (win < caps[0]
+                                            or t_max < caps[1]):
+                win = min(win * 4, caps[0])
+                t_max = min(t_max * 4, caps[1])
+                retries += 1
+                continue
+            return out, st, adler
+
+    def _decode_kernel(self, bodies: list[bytes], out_size: int):
+        caps = self._caps(bodies, out_size)
+        first = (self.win_bytes, self.t_max)
+        # the retry loop stops at its first budget or at the ceilings
+        last = first if first[0] >= caps[0] and first[1] >= caps[1] else caps
+        Ds = _stack(bodies, (max(len(b) for b in bodies) + 3) & ~3 or 4)
+        # rows read as the retry loop pads them: zeros past the body
+        out, st, _, adler, blk, info = _inflate_cuda(
+            trace.upload(Ds, self.device),
+            Ds.shape[1] + max(first[0], last[0]) + 8, out_size, first, last,
             self.max_blocks, out_size + 1)
-        self.last_run = {"blocks": int(blk.max()), "retries": retries}
-        return out, status, end_bit, adler
+        self.last_run = {"blocks": int(blk.max()),
+                         "retries": _retries(info, first, caps)}
+        return out, st, adler
 
     def run(self, body: bytes, out_size: int):
         """Raw DEFLATE body → (output tensor on the device, adler) or
         raises."""
-        win = self.win_bytes
-        t_max = self.t_max
-        # valid single blocks may span the whole stream and carry up to
-        # out_size+1 tokens — the retry ceilings must cover both, or valid
-        # data gets mislabeled corrupt
-        win_cap = _pow2_at_least(len(body) + 16, 1 << 12, 1 << 30)
-        t_cap_pow = _pow2_at_least(out_size + 1, 1 << 10, 1 << 30)
-        retries = 0
-        while True:
-            out, st, _, adler = self._run(self._prepare(body, win)[None],
-                                          out_size, win, t_max, retries)
-            status = int(st[0])
-            if status == OK:
-                return out[0], int(adler[0])
-            if status & F_OVERFLOW and (win < win_cap or t_max < t_cap_pow):
-                win = min(win * 4, win_cap)
-                t_max = min(t_max * 4, t_cap_pow)
-                retries += 1
-                continue
-            # distinct taxonomy per failure class, matching the host
-            # engine's cases
-            if status & F_BAD_BLOCK:
-                raise DecompressionError.invalid_block_type_code(3)
-            if status & F_BAD_PARITY:
-                raise DecompressionError.invalid_block_element_count_parity(
-                    0, 0)
-            if status & F_BAD_DISTANCE:
-                raise DecompressionError.invalid_string_reference()
-            if status & F_BAD_CODE:
-                raise DecompressionError.invalid_huffman_table()
-            if status & F_OUTPUT_MISMATCH:
-                # the wrong byte count for the declared output: a
-                # truncated or overlong body
-                raise DecompressionError.invalid_stream_checksum(0, 0)
-            if status & (F_TOO_MANY_BLOCKS | F_OVERFLOW):
-                # budgets exhausted after growing to the stream-derived
-                # ceilings: only malformed streams can get here
-                raise DecompressionError.invalid_block_type_code(3)
-            raise DecompressionError.invalid_huffman_table()
+        out, st, adler = self._decode([body], out_size)
+        if st[0] != OK:
+            _raise_status(int(st[0]))
+        return out[0], int(adler[0])
 
     def inflate(self, data: bytes, out_size: int, format: str = "zlib",
                 keep_on_device: bool = False):
@@ -691,28 +806,10 @@ class InflateFusedBatch(InflateFused):
     """Batch wrapper: the same buckets and retry over a stacked batch."""
 
     def run_batch(self, bodies: list[bytes], out_size: int):
-        win = self.win_bytes
-        t_max = self.t_max
-        nmax = max(len(b) for b in bodies)
-        # same retry ceilings as InflateFused.run
-        win_cap = _pow2_at_least(nmax + 16, 1 << 12, 1 << 30)
-        t_cap_pow = _pow2_at_least(out_size + 1, 1 << 10, 1 << 30)
-        retries = 0
-        while True:
-            bucket = 1 << max(12, (nmax + win + 8 - 1).bit_length())
-            Ds = np.zeros((len(bodies), bucket), np.uint8)
-            for i, b in enumerate(bodies):
-                Ds[i, :len(b)] = np.frombuffer(b, np.uint8)
-            out, st, _, adler = self._run(Ds, out_size, win, t_max, retries)
-            if (st == OK).all():
-                return out, adler
-            if (st & F_OVERFLOW).any() and (win < win_cap
-                                            or t_max < t_cap_pow):
-                win = min(win * 4, win_cap)
-                t_max = min(t_max * 4, t_cap_pow)
-                retries += 1
-                continue
+        out, st, adler = self._decode(bodies, out_size)
+        if (st != OK).any():
             raise DecompressionError.invalid_huffman_table()
+        return out, adler
 
     def inflate_batch(self, datas: list[bytes], out_size: int,
                       format: str = "zlib", keep_on_device: bool = True):

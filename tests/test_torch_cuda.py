@@ -18,7 +18,10 @@ from swift_png_tpu_torch.ops.deflate_emit import (emit_terms_cuda,
                                                   emit_terms_reference)
 from swift_png_tpu_torch.ops.deinterlace import (deinterlace_samples,
                                                  pass_geometry)
-from swift_png_tpu_torch.ops.inflate_fused import inflate_fused_batch
+from swift_png_tpu_torch._host.lz77.errors import DecompressionError
+from swift_png_tpu_torch.ops.inflate_fused import (InflateFused,
+                                                   inflate_fused,
+                                                   inflate_fused_batch)
 from swift_png_tpu_torch.ops.inflate_checkpoint import CheckpointInflator
 from swift_png_tpu_torch.ops.inflate_seqcopy import (records_well_formed,
                                                      seqcopy_cuda,
@@ -180,7 +183,8 @@ def test_decode_indexed_on_card_counts_launches(cuda):
     assert out.device.type == "cuda"
     assert _kernels.launch_counts() == {"decode_stamp": 1, "defilter": 1,
                                         "seqcopy": 0, "cand": 0,
-                                        "dp_parse": 0, "emit": 0}
+                                        "dp_parse": 0, "emit": 0,
+                                        "inflate_stream": 0}
     assert torch.equal(out.cpu(), torch.from_numpy(np.stack([px, px])))
 
 
@@ -282,7 +286,8 @@ def test_decode_indexed_records_mode_on_card(cuda):
     out = decode_indexed(pngs)
     assert _kernels.launch_counts() == {"decode_stamp": 1, "defilter": 1,
                                         "seqcopy": 1, "cand": 0,
-                                        "dp_parse": 0, "emit": 0}
+                                        "dp_parse": 0, "emit": 0,
+                                        "inflate_stream": 0}
     assert torch.equal(out.cpu(), torch.from_numpy(np.stack(images)))
 
 
@@ -477,8 +482,9 @@ def test_general_decode_on_card_matches_cpu(cuda, config):
 
 
 def test_inflate_fused_on_card_matches_cpu(cuda):
-    """The fused inflate's every field on the card and on the CPU, on valid
-    streams and seeded corruptions in one lockstep batch."""
+    """The fused inflate's every field on the card (one ``inflate_stream``
+    launch) and on the CPU (the plain version), on valid streams and seeded
+    corruptions in one batch, rows past the stream zero or random."""
     rng = np.random.default_rng(9)
     data = bytes(rng.integers(0, 16, 20000, dtype=np.uint8))
     body = zlib.compress(data, 6)[2:]
@@ -493,13 +499,101 @@ def test_inflate_fused_on_card_matches_cpu(cuda):
             Ds[i, len(body):] = rng.integers(0, 256, n - len(body))
     kw = dict(out_size=len(data), win_words=1 << 14, t_max=1 << 15,
               max_blocks=1 << 14, tok_cap=len(data) + 1)
+    _kernels.reset_launches()
     got = inflate_fused_batch(torch.from_numpy(Ds).to(cuda), **kw)
+    assert _kernels.launch_counts()["inflate_stream"] == 1
     want = inflate_fused_batch(torch.from_numpy(Ds), **kw)
     assert got[0].device.type == "cuda"
     assert torch.equal(got[0].cpu(), want[0])
     for g, w in zip(got[1:], want[1:]):
         assert np.array_equal(g, w)
     assert got[1][0] == 0 and bytes(got[0][0, :len(data)].cpu()) == data
+
+
+def test_inflate_fused_on_card_takes_any_row(cuda):
+    """``inflate_fused`` on the card of a row that starts at an odd address
+    and whose length is no multiple of 4 (the kernel reads aligned words:
+    the row is copied) gives what the CPU gives; a row shorter than its
+    windows raises ``ValueError``, as ``lax.dynamic_slice`` refuses it."""
+    data = bytes(range(256)) * 40
+    body = zlib.compress(data, 6)[2:]
+    kw = dict(out_size=len(data), win_words=1 << 12, t_max=1 << 12,
+              max_blocks=1 << 14, tok_cap=len(data) + 1)
+    buf = np.zeros(1 + len(body) + (1 << 12) + 9, np.uint8)
+    buf[1:1 + len(body)] = np.frombuffer(body, np.uint8)
+    row = torch.from_numpy(buf).to(cuda)[1:]
+    assert row.data_ptr() % 4 and row.shape[0] % 4
+    got = inflate_fused(row, **kw)
+    want = inflate_fused(torch.from_numpy(buf[1:]), **kw)
+    assert torch.equal(got[0].cpu(), want[0]) and got[1:] == want[1:]
+    assert got[1] == 0 and bytes(got[0][:len(data)].cpu()) == data
+    with pytest.raises(ValueError, match="shorter"):
+        inflate_fused(row[:1 << 10], **kw)
+
+
+def _run_outcome(eng, fn, size):
+    """The bytes and Adler-32 (or Adler-32 and CRC check) ``fn`` gives, or
+    its error's class and case; with the engine's ``last_run``."""
+    try:
+        out = fn()
+        if isinstance(out, tuple):
+            out, adler = out
+            got = bytes(out[:size].cpu().numpy()), adler
+        else:
+            got = bytes(out.cpu().numpy() if isinstance(out, torch.Tensor)
+                        else out)
+    except DecompressionError as e:
+        got = type(e).__name__, e.case
+    return got, dict(eng.last_run)
+
+
+INFLATE_CASES = chip_smoke.inflate_stream_cases()
+
+
+@pytest.mark.parametrize("name", list(INFLATE_CASES))
+def test_inflate_stream_matches_cpu(cuda, name):
+    """``InflateFused.run`` on the card (one ``inflate_stream`` launch) and
+    on the CPU (the plain loop with its budget retries): the same bytes and
+    Adler-32 or the same error, and the same blocks and retries."""
+    body, size = INFLATE_CASES[name]
+    card = InflateFused(device=cuda)
+    _kernels.reset_launches()
+    got = _run_outcome(card, lambda: card.run(body, size), size)
+    assert _kernels.launch_counts()["inflate_stream"] == 1
+    cpu = InflateFused(device="cpu")
+    assert got == _run_outcome(cpu, lambda: cpu.run(body, size), size)
+
+
+@pytest.mark.parametrize("fmt", ["zlib", "ios", "gzip"])
+@pytest.mark.parametrize("budget", [{}, {"win_bytes": 64, "t_max": 8}],
+                         ids=["default", "retries"])
+def test_inflate_stream_formats_and_retries(cuda, fmt, budget):
+    """``InflateFused.inflate`` on the card against the CPU for a zlib, a
+    raw (CgBI, "ios") and a gzip stream, at the default budgets and at
+    budgets so small that the plain loop retries up to its ceilings."""
+    import gzip
+    data = chip_smoke.inflate_stream_cases(corrupt=0)
+    body, size = data["blocks64"]
+    raw = zlib.decompressobj(-15).decompress(body)
+    stream = {"zlib": zlib.compress(raw, 9), "ios": body,
+              "gzip": gzip.compress(raw, 6, mtime=0)}[fmt]
+    card = InflateFused(device=cuda, **budget)
+    cpu = InflateFused(device="cpu", **budget)
+    got = _run_outcome(card, lambda: card.inflate(stream, size, fmt), size)
+    want = _run_outcome(cpu, lambda: cpu.inflate(stream, size, fmt), size)
+    assert got == want and got[0] == raw
+    assert (got[1]["retries"] > 0) == bool(budget)
+
+
+def test_general_decode_launches_inflate_stream_once_an_image(cuda):
+    """``BatchCodec.decode`` of ordinary PNGs on the card: one
+    ``inflate_stream`` launch an image, pixels equal to the CPU decode."""
+    px, pngs = _general_batch("rgba8", n=4)
+    _kernels.reset_launches()
+    out = BatchCodec(cuda).decode(pngs)
+    assert _kernels.launch_counts()["inflate_stream"] == 4
+    assert np.array_equal(out, BatchCodec(device="cpu").decode(pngs))
+    assert np.array_equal(out, px)
 
 
 @pytest.mark.parametrize("size", [(1, 1), (3, 5), (9, 17), (33, 31)])
